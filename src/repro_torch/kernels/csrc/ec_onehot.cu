@@ -1,8 +1,8 @@
-// ec_fused and ec_blocked for Hopper: tile-accumulator EC, replacing the TPU
-// kernels `_fused_kernel` / `ec_fused` (src/repro/kernels/mttkrp_fused.py)
-// and `_ec_kernel` / `ec_blocked` (src/repro/kernels/mttkrp_pallas.py).
+// ec_blocked for Hopper: tile-accumulator EC over rows gathered before the
+// kernel, replacing the TPU kernel `_ec_kernel` / `ec_blocked`
+// (src/repro/kernels/mttkrp_pallas.py).
 //
-// On the TPU both commit each block as onehot(row_in_tile)^T @ E on the
+// On the TPU it commits each block as onehot(row_in_tile)^T @ E on the
 // matrix unit into a (tile, R) output tile kept resident across the
 // consecutive blocks of that tile. Here there is no one-hot product: in f32
 // on tensor cores it would run in TF32 and lose f32 parity, and it is pure
@@ -10,25 +10,42 @@
 // kernel blocks of one tile (see ec_common.cuh) and keeps the (tile, R)
 // accumulator in shared memory. For each kernel block in its run, in order:
 //   1. all threads form the products E = val ⊙ rows_0 ⊙ rows_1 ... in shared
-//      memory — gathering the factor rows in the kernel (ec_fused) or
-//      reading the (nnz, R) rows gathered before it (ec_blocked) — and
-//      stage the block's row_in_tile;
+//      memory from the (nnz, R) rows gathered before the kernel, and stage
+//      the block's row_in_tile;
 //   2. for each column r, one thread adds E[p, r] into acc[row_in_tile[p], r]
 //      for p in slot order.
 // At the end of the run the accumulator is stored into the tile once.
-//
-// `num_buffers` (ec_fused) is validated by the Python wrapper as on the TPU
-// but unused here: this first kernel has no cp.async prefetch ring.
+// A hot tile's run is walked by one CUDA block; splitting it as ec_sorted
+// and ec_fused do is queued work.
 #include "ec_common.cuh"
+
+// E[p*R + r] = ((val[p] * G_0[slot, r]) * G_1[slot, r]) ... for the block_p
+// slots starting at slot0, from rows gathered before the kernel: G_w is
+// (nnz, R) in T (f32 or bf16), cast to f32 here.
+template <int NIN, typename T>
+__device__ __forceinline__ void ec_pregathered_products(
+    float* E, const float* __restrict__ values, EcInputs<T> G, int64_t slot0,
+    int block_p, int R) {
+  const int n = block_p * R;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int p = i / R;
+    const int64_t slot = slot0 + p;
+    const int64_t at = slot0 * R + i;
+    float e = values[slot];
+#pragma unroll
+    for (int w = 0; w < NIN; ++w) e = __fmul_rn(e, ec_to_f32(G.p[w][at]));
+    E[i] = e;
+  }
+}
 
 // Shared-memory layout: E (block_p, R) f32 | acc (tile, R) f32 |
 // rit (block_p) int32. kernels/_build.py::variant_smem_bytes mirrors it.
-template <int NIN, bool GATHER, typename T>
+template <int NIN, typename T>
 __global__ void __launch_bounds__(EC_THREADS) ec_onehot_kernel(
     const float* __restrict__ values, const int* __restrict__ row_in_tile,
     const int* __restrict__ block_to_tile, const int* __restrict__ run_starts,
-    const int* __restrict__ input_indices, EcInputs<T> in,
-    float* __restrict__ out, int nblocks, int block_p, int tile, int R) {
+    EcInputs<T> in, float* __restrict__ out, int nblocks, int block_p,
+    int tile, int R) {
   extern __shared__ float smem[];
   float* E = smem;
   float* acc = E + block_p * R;
@@ -38,11 +55,7 @@ __global__ void __launch_bounds__(EC_THREADS) ec_onehot_kernel(
   for (int i = threadIdx.x; i < tile * R; i += blockDim.x) acc[i] = 0.0f;
   for (int b = b0; b < b1; ++b) {
     const int64_t slot0 = (int64_t)b * block_p;
-    if constexpr (GATHER) {
-      ec_gather_products<NIN>(E, values, input_indices, in, slot0, block_p, R);
-    } else {
-      ec_pregathered_products<NIN, T>(E, values, in, slot0, block_p, R);
-    }
+    ec_pregathered_products<NIN, T>(E, values, in, slot0, block_p, R);
     for (int p = threadIdx.x; p < block_p; p += blockDim.x)
       rit[p] = row_in_tile[slot0 + p];
     __syncthreads();
@@ -58,59 +71,39 @@ __global__ void __launch_bounds__(EC_THREADS) ec_onehot_kernel(
   for (int i = threadIdx.x; i < tile * R; i += blockDim.x) o[i] = acc[i];
 }
 
-template <int NIN, bool GATHER, typename T>
+template <int NIN, typename T>
 static cudaError_t launch(const float* values, const int* row_in_tile,
                           const int* block_to_tile, const int* run_starts,
-                          const int* input_indices, EcInputs<T> in, float* out,
-                          int nblocks, int block_p, int tile, int R, int smem,
+                          EcInputs<T> in, float* out, int nblocks,
+                          int block_p, int tile, int R, int smem,
                           cudaStream_t stream) {
-  return ec_launch(ec_onehot_kernel<NIN, GATHER, T>, nblocks, smem, stream,
-                   values, row_in_tile, block_to_tile, run_starts,
-                   input_indices, in, out, nblocks, block_p, tile, R);
+  return ec_launch(ec_onehot_kernel<NIN, T>, nblocks, EC_THREADS, smem,
+                   stream, values, row_in_tile, block_to_tile, run_starts, in,
+                   out, nblocks, block_p, tile, R);
 }
 
-template <bool GATHER, typename T>
+template <typename T>
 static cudaError_t dispatch(int nin, const float* values,
                             const int* row_in_tile, const int* block_to_tile,
-                            const int* run_starts, const int* input_indices,
-                            EcInputs<T> in, float* out, int nblocks,
-                            int block_p, int tile, int R, int smem,
-                            cudaStream_t st) {
+                            const int* run_starts, EcInputs<T> in, float* out,
+                            int nblocks, int block_p, int tile, int R,
+                            int smem, cudaStream_t st) {
   switch (nin) {
     case 1:
-      return launch<1, GATHER, T>(values, row_in_tile, block_to_tile,
-                                  run_starts, input_indices, in, out, nblocks,
-                                  block_p, tile, R, smem, st);
+      return launch<1, T>(values, row_in_tile, block_to_tile, run_starts, in,
+                          out, nblocks, block_p, tile, R, smem, st);
     case 2:
-      return launch<2, GATHER, T>(values, row_in_tile, block_to_tile,
-                                  run_starts, input_indices, in, out, nblocks,
-                                  block_p, tile, R, smem, st);
+      return launch<2, T>(values, row_in_tile, block_to_tile, run_starts, in,
+                          out, nblocks, block_p, tile, R, smem, st);
     case 3:
-      return launch<3, GATHER, T>(values, row_in_tile, block_to_tile,
-                                  run_starts, input_indices, in, out, nblocks,
-                                  block_p, tile, R, smem, st);
+      return launch<3, T>(values, row_in_tile, block_to_tile, run_starts, in,
+                          out, nblocks, block_p, tile, R, smem, st);
     case 4:
-      return launch<4, GATHER, T>(values, row_in_tile, block_to_tile,
-                                  run_starts, input_indices, in, out, nblocks,
-                                  block_p, tile, R, smem, st);
+      return launch<4, T>(values, row_in_tile, block_to_tile, run_starts, in,
+                          out, nblocks, block_p, tile, R, smem, st);
     default:
       return cudaErrorInvalidValue;
   }
-}
-
-// ec_fused: factors f0..f3 are (padded_w, R) f32, input_indices (nnz, nin).
-extern "C" int ec_fused_launch(const float* values, const int* row_in_tile,
-                               const int* block_to_tile, const int* run_starts,
-                               const int* input_indices, const float* f0,
-                               const float* f1, const float* f2,
-                               const float* f3, float* out, int nin,
-                               int nblocks, int block_p, int tile, int R,
-                               int smem, void* stream) {
-  EcInputs<float> in = {{f0, f1, f2, f3}};
-  return dispatch<true, float>(nin, values, row_in_tile, block_to_tile,
-                               run_starts, input_indices, in, out, nblocks,
-                               block_p, tile, R, smem,
-                               static_cast<cudaStream_t>(stream));
 }
 
 // ec_blocked: g0..g3 are pre-gathered (nnz, R) rows, f32 (bf16 == 0) or
@@ -127,15 +120,14 @@ extern "C" int ec_blocked_launch(const float* values, const int* row_in_tile,
     using T = __nv_bfloat16;
     EcInputs<T> in = {{static_cast<const T*>(g0), static_cast<const T*>(g1),
                        static_cast<const T*>(g2), static_cast<const T*>(g3)}};
-    return dispatch<false, T>(nin, values, row_in_tile, block_to_tile,
-                              run_starts, nullptr, in, out, nblocks, block_p,
-                              tile, R, smem, st);
+    return dispatch<T>(nin, values, row_in_tile, block_to_tile, run_starts,
+                       in, out, nblocks, block_p, tile, R, smem, st);
   }
   EcInputs<float> in = {{static_cast<const float*>(g0),
                          static_cast<const float*>(g1),
                          static_cast<const float*>(g2),
                          static_cast<const float*>(g3)}};
-  return dispatch<false, float>(nin, values, row_in_tile, block_to_tile,
-                                run_starts, nullptr, in, out, nblocks, block_p,
-                                tile, R, smem, st);
+  return dispatch<float>(nin, values, row_in_tile, block_to_tile,
+                         run_starts, in, out, nblocks, block_p, tile, R, smem,
+                         st);
 }

@@ -2,92 +2,82 @@
 // layout, replacing the TPU kernel `_sorted_kernel` / `ec_sorted` of
 // src/repro/kernels/mttkrp_sorted.py.
 //
-// One CUDA block per run of consecutive kernel blocks of one output tile
-// (see ec_common.cuh). For each kernel block in its run, in order:
-//   1. all threads gather the block's factor rows and form the products
-//      E = val ⊙ F_0[idx_0] ⊙ F_1[idx_1] ... into shared memory;
-//   2. for each column r, one thread walks the block's row segments
-//      (seg_starts / seg_rows, at most tile + 1 of them) and, per segment,
-//      loads the output row's current partial, adds the segment's products
-//      in slot order and stores the row once.
-// The output is zeroed by the caller, so a row's first segment starts from
-// 0 exactly as the reference's scatter-add does: the result is bitwise that
-// of the plain f32 reference on the CPU.
+// Bound by bytes: per slot a value, nin indices and nin factor rows of R
+// f32 against (nin + 1) * R flops. The factors fit in L2 at the smoke's
+// size, so the gather's L2 traffic, not device memory, is the working limit.
 //
-// `num_buffers` is validated by the Python wrapper as on the TPU but unused
-// here: this first kernel has no cp.async prefetch ring.
+// Design (see ec_common.cuh): runs of blocks of one tile are cut into work
+// items of at most CHUNK_BLOCKS blocks, one warp each, so a hot tile is
+// spread over many SMs. The warp gathers its slots' factor rows through a
+// cp.async ring of `num_buffers` stages, walks each block's row segments
+// (seg_starts / seg_rows, delivered through the same ring) and adds a
+// segment's products in slot order into a register sum per column, which
+// moves to the warp's (tile, R) shared accumulator when the row changes; the
+// tile (or the item's partial, for a run longer than CHUNK_BLOCKS blocks) is
+// written once per item. ec_combine adds a split run's partials in item
+// order. A run of at most CHUNK_BLOCKS blocks keeps the slot order and so the
+// reference's bits; a longer run gives up strict slot order for the fixed
+// two-level order, the same on every run and card.
 #include "ec_common.cuh"
 
-template <int NIN>
-__global__ void __launch_bounds__(EC_THREADS) ec_sorted_kernel(
-    const float* __restrict__ values, const int* __restrict__ seg_starts,
-    const int* __restrict__ seg_rows, const int* __restrict__ block_to_tile,
-    const int* __restrict__ run_starts, const int* __restrict__ input_indices,
-    EcInputs<float> F, float* __restrict__ out, int nblocks, int block_p,
-    int tile, int R, int nseg) {
-  extern __shared__ float E[];  // (block_p, R)
-  int b0, b1;
-  if (!ec_block_run(run_starts, nblocks, &b0, &b1)) return;
-  const int64_t tile_row0 = (int64_t)block_to_tile[b0] * tile;
-  for (int b = b0; b < b1; ++b) {
-    ec_gather_products<NIN>(E, values, input_indices, F, (int64_t)b * block_p,
-                            block_p, R);
-    __syncthreads();
-    const int* ss = seg_starts + (int64_t)b * (nseg + 1);
-    const int* sr = seg_rows + (int64_t)b * nseg;
-    for (int r = threadIdx.x; r < R; r += blockDim.x) {
-      for (int s = 0; s < nseg; ++s) {
-        const int start = ss[s];
-        const int end = ss[s + 1];
-        if (end <= start) continue;  // unused descriptor slot
-        float* o = out + (tile_row0 + sr[s]) * R + r;
-        float acc = *o;
-        for (int p = start; p < end; ++p) acc = __fadd_rn(acc, E[p * R + r]);
-        *o = acc;
-      }
-    }
-    __syncthreads();
-  }
-}
+// Segment descriptors of one block: seg_starts row (nseg + 1 words) then
+// seg_rows row (nseg words), nseg = tile + 1, one ring entry per block in
+// flight (consecutive blocks take consecutive entries).
+struct SortedMeta {
+  const int* seg_starts;  // (nblocks, nseg + 1)
+  const int* seg_rows;    // (nblocks, nseg)
+  int nseg;
+  // walk state: the block's descriptors, current segment, its end, its row
+  const int* d;
+  int sg, next, row_now;
 
-template <int NIN>
-static cudaError_t launch(const float* values, const int* seg_starts,
-                          const int* seg_rows, const int* block_to_tile,
-                          const int* run_starts, const int* input_indices,
-                          EcInputs<float> F, float* out, int nblocks,
-                          int block_p, int tile, int R, int nseg, int smem,
-                          cudaStream_t stream) {
-  return ec_launch(ec_sorted_kernel<NIN>, nblocks, smem, stream, values,
-                   seg_starts, seg_rows, block_to_tile, run_starts,
-                   input_indices, F, out, nblocks, block_p, tile, R, nseg);
-}
+  __host__ __device__ static int words(int tile, int nbuf) {
+    return nbuf * (2 * tile + 3);
+  }
+  __device__ __forceinline__ void issue(int* m, int u, int blk, int q, int ns,
+                                        int64_t s0, int lane, int nbuf,
+                                        int tile) const {
+    if (q != 0) return;  // a block's descriptors come with its first stage
+    int* dst = m + (blk % nbuf) * (2 * nseg + 1);
+    for (int k = lane; k < 2 * nseg + 1; k += 32) {
+      const int* src = k <= nseg
+                           ? seg_starts + (int64_t)blk * (nseg + 1) + k
+                           : seg_rows + (int64_t)blk * nseg + (k - nseg - 1);
+      ec_cp_async4(dst + k, src);
+    }
+  }
+  __device__ __forceinline__ int row(const int* m, int u, int blk, int q,
+                                      int j, int nbuf, int tile) {
+    const int p = q + j;
+    if (p == 0) {
+      d = m + (blk % nbuf) * (2 * nseg + 1);
+      sg = -1;
+      next = 0;
+    }
+    if (p == next) {  // skip empty descriptor slots; d[nseg] == block_p
+      do {
+        ++sg;
+      } while (d[sg + 1] <= p);
+      next = d[sg + 1];
+      row_now = d[nseg + 1 + sg];
+    }
+    return row_now;
+  }
+};
 
 extern "C" int ec_sorted_launch(
     const float* values, const int* seg_starts, const int* seg_rows,
-    const int* block_to_tile, const int* run_starts, const int* input_indices,
-    const float* f0, const float* f1, const float* f2, const float* f3,
-    float* out, int nin, int nblocks, int block_p, int tile, int R, int nseg,
-    int smem, void* stream) {
-  EcInputs<float> F = {{f0, f1, f2, f3}};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (nin) {
-    case 1:
-      return launch<1>(values, seg_starts, seg_rows, block_to_tile, run_starts,
-                       input_indices, F, out, nblocks, block_p, tile, R, nseg,
-                       smem, st);
-    case 2:
-      return launch<2>(values, seg_starts, seg_rows, block_to_tile, run_starts,
-                       input_indices, F, out, nblocks, block_p, tile, R, nseg,
-                       smem, st);
-    case 3:
-      return launch<3>(values, seg_starts, seg_rows, block_to_tile, run_starts,
-                       input_indices, F, out, nblocks, block_p, tile, R, nseg,
-                       smem, st);
-    case 4:
-      return launch<4>(values, seg_starts, seg_rows, block_to_tile, run_starts,
-                       input_indices, F, out, nblocks, block_p, tile, R, nseg,
-                       smem, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+    const int* block_to_tile, const int* item_starts, const int* item_part,
+    const int* split, const int* input_indices, const float* f0,
+    const float* f1, const float* f2, const float* f3, float* out,
+    float* partials, int nin, int n_items, int n_split, int nblocks,
+    int block_p, int tile, int R, int nbuf, int vec, int smem,
+    void* stream) {
+  EcItemArgs a = {values, input_indices, block_to_tile, item_starts,
+                  item_part, out, partials, n_items, nblocks, block_p,
+                  tile, R, nbuf, 0};
+  SortedMeta meta = {seg_starts, seg_rows, tile + 1, nullptr, 0, 0, 0};
+  return ec_items_and_combine(a, EcInputs<float>{{f0, f1, f2, f3}}, meta,
+                              nin, vec, split, n_split, smem,
+                              static_cast<cudaStream_t>(stream));
 }

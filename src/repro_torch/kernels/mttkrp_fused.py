@@ -2,13 +2,16 @@
 
 Replaces the TPU kernel ``ec_fused`` (src/repro/kernels/mttkrp_fused.py:128,
 body ``_fused_kernel`` :53-125) with a CUDA kernel written for Hopper,
-``ec_fused_launch`` in ``csrc/ec_onehot.cu`` (shared with ``ec_blocked``).
+``csrc/ec_fused.cu``.
 
 What it computes. Per kernel block: gather ``nin`` factor rows per nonzero
 in the kernel, form ``e = val ⊙ Π rows`` in f32 and add each slot's products
-into row ``row_in_tile`` of its block's ``(tile, R)`` output tile; the tile
-starts from zero where ``block_to_tile`` changes. No ``(nnz, R)`` gathered
-intermediate exists.
+into row ``row_in_tile`` of its block's ``(tile, R)`` output tile. No
+``(nnz, R)`` gathered intermediate exists. Order of the sums: as
+``ec_sorted``'s — slot order within a tile's run of at most
+``_build.CHUNK_BLOCKS`` blocks, and for a longer run per-chunk partials in
+slot order added in chunk order (``ref.ec_rows_chunked``); bitwise that of
+:func:`ec_fused_plain` on the CPU.
 
 What bounds it on the H100. Bytes, as for ``ec_sorted``: a value, ``nin``
 indices, a row index and ``nin`` factor rows per slot against
@@ -16,13 +19,17 @@ indices, a row index and ``nin`` factor rows per slot against
 output written once, over 3.35 TB/s.
 
 What the design does about it. On the TPU each block's commit was a
-``onehot(row_in_tile)ᵀ @ E`` product on the matrix unit into a VMEM-resident
-tile. Here one CUDA block owns each run of consecutive blocks of a tile and
-keeps the ``(tile, R)`` accumulator in shared memory: the products are
-staged with coalesced row loads by all threads, then one thread per column
-adds them into the accumulator in slot order, and the tile is stored once
-per run. No one-hot product (in f32 on tensor cores it would be TF32), no
-atomics. ``num_buffers`` is validated as on the TPU and otherwise unused.
+``onehot(row_in_tile)ᵀ @ E`` product on the matrix unit into a
+VMEM-resident tile. Here there is no one-hot product (in f32 on tensor
+cores it would be TF32; it is pure scatter overhead) and no atomics. Runs
+are cut into work items of at most ``CHUNK_BLOCKS`` blocks, one warp each
+(``_build.tile_chunks``); the warp fills a ``cp.async`` ring of
+``num_buffers`` stages with its slots' factor rows, values and
+``row_in_tile``, and adds each slot into a ``(tile, R)`` shared accumulator,
+keeping the current row's sum in registers, one lane per column. A split
+run's partials are added in item order by ``ec_combine``. ``num_buffers``
+changes no bit. What it gives up: strict slot order on runs longer than
+``CHUNK_BLOCKS`` blocks.
 """
 from __future__ import annotations
 
@@ -32,12 +39,12 @@ from typing import Sequence
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import ec_rows_ref
+from repro_torch.kernels.ref import ec_rows_chunked
 
 __all__ = ["ec_fused", "ec_fused_plain"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 10 + [_I] * 6 + [_P]
+_ARGTYPES = [_P] * 13 + [_I] * 10 + [_P]
 
 
 def check_onehot_args(values, row_in_tile, *, num_rows, tile, block_p,
@@ -88,21 +95,25 @@ def ec_fused(
         raise ValueError(f"ec_fused runs on cpu or cuda tensors, got "
                          f"{values.device}")
     return _launch(values, row_in_tile, block_to_tile, input_indices, factors,
-                   num_rows=num_rows, tile=tile, block_p=block_p)
+                   num_rows=num_rows, tile=tile, block_p=block_p,
+                   num_buffers=num_buffers)
 
 
 def ec_fused_plain(values, row_in_tile, block_to_tile, input_indices,
                    factors, *, num_rows: int, tile: int,
                    block_p: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`ec_fused`, on any device."""
+    """Plain PyTorch version of :func:`ec_fused`, on any device, in the
+    kernel's two-level order (``ref.ec_rows_chunked``)."""
     gathered = [f.index_select(0, input_indices[:, j])
                 for j, f in enumerate(factors)]
     rows = onehot_rows(row_in_tile, block_to_tile, tile=tile, block_p=block_p)
-    return ec_rows_ref(values, gathered, rows, num_rows)
+    return ec_rows_chunked(values, gathered, rows, num_rows, block_to_tile,
+                           tile=tile, block_p=block_p,
+                           chunk_blocks=_build.CHUNK_BLOCKS)
 
 
 def _launch(values, row_in_tile, block_to_tile, input_indices, factors, *,
-            num_rows, tile, block_p):
+            num_rows, tile, block_p, num_buffers):
     dev = values.device
     nnz, nin = input_indices.shape
     nblocks = nnz // block_p
@@ -123,18 +134,21 @@ def _launch(values, row_in_tile, block_to_tile, input_indices, factors, *,
     for j, f in enumerate(facs):
         _build.require(f, f"factors[{j}]", shape=(f.shape[0], rank),
                        dtypes=f32, device=dev)
-    out, runs, smem = _build.launch_buffers(
-        "fused", block_to_tile, num_rows=num_rows, tile=tile,
-        block_p=block_p, rank=rank)
+    out, chunks, partials, smem = _build.item_buffers(
+        "fused", block_to_tile, num_rows=num_rows, tile=tile, rank=rank,
+        nin=nin, num_buffers=num_buffers)
     if nblocks == 0:
         return out
     fptrs = [f.data_ptr() for f in facs] + [0] * (4 - nin)
-    fn = _build.kernel_function("ec_onehot", "ec_fused_launch", _ARGTYPES)
+    fn = _build.kernel_function("ec_fused", "ec_fused_launch", _ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(values.data_ptr(), row_in_tile.data_ptr(),
-                 block_to_tile.data_ptr(), runs.data_ptr(),
-                 input_indices.data_ptr(), *fptrs, out.data_ptr(), nin,
-                 nblocks, block_p, tile, rank, smem, _build.cuda_stream(dev))
-    _build.check(err, "ec_onehot", "ec_fused")
+                 block_to_tile.data_ptr(), chunks.item_starts.data_ptr(),
+                 chunks.item_part.data_ptr(), chunks.split.data_ptr(),
+                 input_indices.data_ptr(), *fptrs, out.data_ptr(),
+                 partials.data_ptr(), nin, nblocks, chunks.split.shape[1],
+                 nblocks, block_p, tile, rank, num_buffers,
+                 _build.copy_width(facs), smem, _build.cuda_stream(dev))
+    _build.check(err, "ec_fused", "ec_fused")
     _build.LAUNCHES["ec_fused"] += 1
     return out

@@ -5,28 +5,33 @@ body ``_sorted_kernel`` :50-130) with a CUDA kernel written for Hopper,
 ``csrc/ec_sorted.cu``.
 
 What it computes. Per kernel block of ``block_p`` slots: gather ``nin``
-factor rows per nonzero, form ``e = val ⊙ Π rows`` in f32, and walk the
-block's at most ``tile + 1`` row segments (``seg_starts``/``seg_rows`` from
-``core.partition.block_segment_descriptors``), adding each segment's
-products in slot order into its output row and writing the row once per
-segment. The result is bitwise that of :func:`ec_sorted_plain` on the CPU.
+factor rows per nonzero, form ``e = val ⊙ Π rows`` in f32, and add the
+products of each of the block's at most ``tile + 1`` row segments
+(``seg_starts``/``seg_rows`` from ``core.partition.block_segment_descriptors``)
+into its output row. Order of the sums: a tile's run of at most
+``_build.CHUNK_BLOCKS`` blocks sums each row in slot order (the bits of the
+slot-order ``ref``); a longer run sums each chunk of that many blocks in
+slot order and the chunks in chunk order (``ref.ec_rows_chunked``). The
+result is bitwise that of :func:`ec_sorted_plain` on the CPU, and on the
+card under ``torch.use_deterministic_algorithms(True)``.
 
 What bounds it on the H100. Bytes: per slot it reads a value, ``nin``
 indices and ``nin`` factor rows of ``R`` f32, and does ``(nin + 1)·R``
 flops on them — far below the card's ~20 flops per byte. The least time is
 every input read once (values, indices, descriptors, the distinct factor
-rows) and the output written once, over 3.35 TB/s.
+rows) and the output written once, over 3.35 TB/s; the factor rows are read
+once per slot, from L2 where the factors fit there.
 
 What the design does about it. The TPU ran the grid in order on one core
-and kept the output tile in VMEM across the blocks of a tile. Here one CUDA
-block owns each run of consecutive blocks of a tile (the partition contract
-makes every visited tile one run), so no two blocks write a row and no
-atomics are needed; the block stages the products in shared memory with
-coalesced row loads and one thread per column walks the segments in slot
-order, which keeps the TPU kernel's bit-identity. A hot tile is one long run
-walked by one CUDA block: that serialisation is the known limit of this
-first kernel. ``num_buffers`` is validated as on the TPU and otherwise
-unused (no prefetch ring yet).
+and kept the output tile in VMEM across the blocks of a tile. Here runs are
+cut into work items of at most ``CHUNK_BLOCKS`` blocks (``_build.tile_chunks``),
+one warp each, so a hot tile's run is spread over the SMs; a split run's
+items write ``(tile, R)`` partials that ``ec_combine`` adds in item order.
+The warp fills a ``cp.async`` ring of ``num_buffers`` stages with its
+slots' factor rows, values and block descriptors, its indices loaded one
+step ahead, and sums each segment in registers, one lane per column.
+``num_buffers`` changes no bit. What it gives up: strict slot order on runs
+longer than ``CHUNK_BLOCKS`` blocks, for the fixed two-level order.
 """
 from __future__ import annotations
 
@@ -36,12 +41,12 @@ from typing import Sequence
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import ec_rows_ref
+from repro_torch.kernels.ref import ec_rows_chunked
 
 __all__ = ["ec_sorted", "ec_sorted_plain"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGTYPES = [_P] * 11 + [_I] * 7 + [_P]
+_ARGTYPES = [_P] * 14 + [_I] * 10 + [_P]
 
 
 def _check_args(values, seg_starts, seg_rows, input_indices, factors, *,
@@ -90,15 +95,16 @@ def ec_sorted(
         raise ValueError(f"ec_sorted runs on cpu or cuda tensors, got "
                          f"{values.device}")
     return _launch(values, seg_starts, seg_rows, block_to_tile, input_indices,
-                   factors, num_rows=num_rows, tile=tile, block_p=block_p)
+                   factors, num_rows=num_rows, tile=tile, block_p=block_p,
+                   num_buffers=num_buffers)
 
 
 def ec_sorted_plain(values, seg_starts, seg_rows, block_to_tile,
                     input_indices, factors, *, num_rows: int, tile: int,
                     block_p: int) -> torch.Tensor:
     """Plain PyTorch version of :func:`ec_sorted`, on any device: rebuild
-    each slot's output row from the descriptors, then run the reference EC
-    (``index_add_`` in slot order)."""
+    each slot's output row from the descriptors, then sum in the kernel's
+    two-level order (``ref.ec_rows_chunked``)."""
     nblocks = block_to_tile.shape[0]
     slots = torch.arange(block_p, dtype=seg_starts.dtype,
                          device=seg_starts.device).expand(nblocks, block_p)
@@ -110,16 +116,21 @@ def ec_sorted_plain(values, seg_starts, seg_rows, block_to_tile,
             + seg_rows.long().gather(1, seg)).reshape(-1)
     gathered = [f.index_select(0, input_indices[:, j])
                 for j, f in enumerate(factors)]
-    return ec_rows_ref(values, gathered, rows, num_rows)
+    return ec_rows_chunked(values, gathered, rows, num_rows, block_to_tile,
+                           tile=tile, block_p=block_p,
+                           chunk_blocks=_build.CHUNK_BLOCKS)
 
 
 def _launch(values, seg_starts, seg_rows, block_to_tile, input_indices,
-            factors, *, num_rows, tile, block_p):
+            factors, *, num_rows, tile, block_p, num_buffers):
     dev = values.device
     nnz, nin = input_indices.shape
     nblocks, nseg = seg_rows.shape
     if not 1 <= nin <= 4:
         raise ValueError(f"ec_sorted takes 1 to 4 input modes, got {nin}")
+    if nseg != tile + 1:
+        raise ValueError(f"ec_sorted takes tile + 1 = {tile + 1} segment "
+                         f"descriptors per block, got {nseg}")
     rank = factors[0].shape[-1]
     i32, f32 = (torch.int32,), (torch.float32,)
     _build.require(values, "values", shape=(nnz,), dtypes=f32, device=dev)
@@ -137,9 +148,9 @@ def _launch(values, seg_starts, seg_rows, block_to_tile, input_indices,
     for j, f in enumerate(facs):
         _build.require(f, f"factors[{j}]", shape=(f.shape[0], rank),
                        dtypes=f32, device=dev)
-    out, runs, smem = _build.launch_buffers(
-        "sorted", block_to_tile, num_rows=num_rows, tile=tile,
-        block_p=block_p, rank=rank)
+    out, chunks, partials, smem = _build.item_buffers(
+        "sorted", block_to_tile, num_rows=num_rows, tile=tile, rank=rank,
+        nin=nin, num_buffers=num_buffers)
     if nblocks == 0:
         return out
     fptrs = [f.data_ptr() for f in facs] + [0] * (4 - nin)
@@ -147,9 +158,12 @@ def _launch(values, seg_starts, seg_rows, block_to_tile, input_indices,
     with torch.cuda.device(dev):
         err = fn(values.data_ptr(), seg_starts.data_ptr(),
                  seg_rows.data_ptr(), block_to_tile.data_ptr(),
-                 runs.data_ptr(), input_indices.data_ptr(), *fptrs,
-                 out.data_ptr(), nin, nblocks, block_p, tile, rank, nseg,
-                 smem, _build.cuda_stream(dev))
+                 chunks.item_starts.data_ptr(), chunks.item_part.data_ptr(),
+                 chunks.split.data_ptr(), input_indices.data_ptr(), *fptrs,
+                 out.data_ptr(), partials.data_ptr(), nin, nblocks,
+                 chunks.split.shape[1], nblocks, block_p, tile, rank,
+                 num_buffers, _build.copy_width(facs), smem,
+                 _build.cuda_stream(dev))
     _build.check(err, "ec_sorted", "ec_sorted")
     _build.LAUNCHES["ec_sorted"] += 1
     return out

@@ -6,14 +6,19 @@ interchangeable variants:
 
   ``ref``      plain PyTorch gather + ``index_add_`` (the semantic oracle)
   ``blocked``  ``index_select`` pre-gather of (nnz, R) input rows + the
-               tile-accumulator CUDA kernel (mttkrp_blocked.ec_blocked)
+               tile-accumulator CUDA kernel (mttkrp_blocked.ec_blocked);
+               slot order
   ``fused``    the factor gather inside the kernel — no gathered
                intermediate (mttkrp_fused.ec_fused)
   ``sorted``   the in-kernel gather + segmented reduction over the
-               row-sorted block layout, each output row written once per
-               segment; bitwise equal to ``ref`` on the CPU
-               (mttkrp_sorted.ec_sorted; needs seg_starts/seg_rows
-               descriptors, see core.partition.block_segment_descriptors)
+               row-sorted block layout (mttkrp_sorted.ec_sorted; needs
+               seg_starts/seg_rows descriptors, see
+               core.partition.block_segment_descriptors)
+
+``sorted`` and ``fused`` equal the slot-order ``ref`` bitwise on every
+tile whose run is at most ``_build.CHUNK_BLOCKS`` blocks; a longer run is
+summed in a fixed two-level order (per-chunk partials in slot order, then
+the chunks in order, ``ref.ec_rows_chunked``), deterministically.
 
 Selection precedence: explicit ``variant=`` argument > ``AMPED_EC_VARIANT``
 environment variable > default (``blocked``). ``use_kernel=False`` forces

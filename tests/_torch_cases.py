@@ -112,6 +112,84 @@ DEGENERATE_SORTED = {
 }
 
 
+# -- runs longer than CHUNK_BLOCKS (16) blocks: split into work items ------
+
+def longest_run(b2t):
+    starts = np.flatnonzero(np.r_[True, b2t[1:] != b2t[:-1], True])
+    return int(np.diff(starts).max()) if b2t.size else 0
+
+
+def hot_row_case(nmodes=3, rank=8, *, seed=0, layout="sorted"):
+    """One hot output row of 640 nonzeros (40 blocks of 16) among light
+    ones: its tile's run is cut into items of 16 blocks inside the row's
+    segment."""
+    rng = np.random.default_rng(seed)
+    shape = (20, 12, 10, 9, 7)[:nmodes]
+    nnz_hot, nnz_light = 640, 90
+    ind = np.stack([rng.integers(0, s, nnz_hot + nnz_light)
+                    for s in shape], axis=1)
+    ind[:nnz_hot, 1] = 2
+    t = SparseTensor(ind.astype(np.int32),
+                     rng.normal(size=nnz_hot + nnz_light).astype(np.float32),
+                     shape)
+    part, _, _ = partition_mode(t, 1, 1, tile=8, block_p=16, layout=layout)
+    assert longest_run(part.block_to_tile[0]) >= 40
+    return part, _factors(shape, seed + 1, rank), 1, 0
+
+
+def long_block_edge_case():
+    """32 rows of exactly block_p nonzeros in one tile of 32: a run of 32
+    blocks whose item boundary falls on a segment (and block) edge."""
+    block_p, rows = 16, 32
+    nnz = block_p * rows
+    rng = np.random.default_rng(8)
+    ind = np.zeros((nnz, 3), np.int64)
+    ind[:, 1] = np.arange(nnz) // block_p
+    ind[:, 0] = rng.integers(0, 5, nnz)
+    ind[:, 2] = rng.integers(0, 11, nnz)
+    t = SparseTensor(ind.astype(np.int32),
+                     rng.normal(size=nnz).astype(np.float32), (5, rows, 11))
+    part, _, _ = partition_mode(t, 1, 1, tile=rows, block_p=block_p,
+                                layout="sorted")
+    assert (part.values[0] != 0).all()
+    assert longest_run(part.block_to_tile[0]) == rows
+    return part, _factors(t.shape, 9), 1, 0
+
+
+def long_trailing_pad_case():
+    """A light shard (6 blocks) padded to the heavy one's 40 blocks: the
+    pad blocks revisit its last tile, whose run of 40 blocks ends in an
+    item of pad blocks only."""
+    nnz_heavy, nnz_light = 640, 96
+    nnz = nnz_heavy + nnz_light
+    rng = np.random.default_rng(10)
+    ind = np.zeros((nnz, 3), np.int64)
+    ind[nnz_heavy:, 1] = 2
+    ind[:, 0] = rng.integers(0, 7, nnz)
+    ind[:, 2] = rng.integers(0, 16, nnz)
+    t = SparseTensor(ind.astype(np.int32),
+                     rng.normal(size=nnz).astype(np.float32), (7, 4, 16))
+    part, _, _ = partition_mode(t, 1, 2, strategy="amped_cdf", replication=1,
+                                tile=4, block_p=16, layout="sorted")
+    dev = int(np.argmin(part.nnz_true))
+    blocks = part.values[dev].reshape(-1, part.block_p)
+    pad = (blocks == 0).all(axis=1)
+    assert part.nnz_true[dev] > 0 and pad[-16:].all()
+    assert longest_run(part.block_to_tile[dev]) > 32
+    return part, _factors(t.shape, 11), 1, dev
+
+
+LONG_RUN = {
+    "hot_row_3mode": lambda: hot_row_case(3, 8, seed=1),
+    "hot_row_4mode": lambda: hot_row_case(4, 32, seed=2),
+    "hot_row_5mode": lambda: hot_row_case(5, 8, seed=3),
+    "hot_row_blocked_layout": lambda: hot_row_case(3, 32, seed=4,
+                                                   layout="blocked"),
+    "boundary_on_block_edge": long_block_edge_case,
+    "all_padding_last_item": long_trailing_pad_case,
+}
+
+
 def shard_arrays(part, dev=0):
     """One device's EC inputs as numpy arrays, with the sorted variant's
     segment descriptors."""

@@ -1,6 +1,9 @@
 """The port's CUDA kernels on the card, held against their plain PyTorch
-versions on the CPU (which sum in slot order, so every kernel must match
-bitwise: the same f32 products, the same per-row order of additions).
+versions on the CPU, bitwise: the same f32 products, the same per-row order
+of additions (slot order, and for ``sorted``/``fused`` on a tile's run of
+more than ``CHUNK_BLOCKS`` blocks the fixed two-level order, which the
+plain versions follow too; on the card they do so under
+``torch.use_deterministic_algorithms(True)``).
 
 Marked ``gpu``: skipped where no card is present, which the fixture below
 decides at run time. Run on a GPU machine with
@@ -13,8 +16,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_cases import (BLOCKED_PROPERTY, BLOCKED_SHAPES,  # noqa: E402
-                          DEGENERATE_SORTED, blocked_case, partitioned_case,
-                          shard_arrays)
+                          DEGENERATE_SORTED, LONG_RUN, blocked_case,
+                          partitioned_case, shard_arrays)
 import repro_torch.api as api  # noqa: E402
 from repro_torch.core.coo import random_sparse  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
@@ -30,10 +33,25 @@ def cuda():
     return torch.device("cuda")
 
 
-def _ec(part, factors, variant, device, dev=0, mode=1, num_buffers=2):
+def _ec(part, factors, variant, device, dev=0, mode=1, num_buffers=2,
+        plain=False):
+    """One shard's EC through ``mttkrp_local`` (``plain``: the variant's
+    plain version on the same device, through ``kernel_args``)."""
     a = shard_arrays(part, dev)
     t = {k: torch.from_numpy(v).to(device) for k, v in a.items()}
     facs = [torch.from_numpy(f).to(device) for f in factors]
+    if plain:
+        from repro_torch.kernels import mttkrp_fused, mttkrp_sorted
+        fn = {"sorted": mttkrp_sorted.ec_sorted_plain,
+              "fused": mttkrp_fused.ec_fused_plain}[variant]
+        args = ops.kernel_args(variant, t["indices"], t["values"],
+                               t["local_rows"], t["block_to_tile"], facs,
+                               mode=mode, tile=part.tile,
+                               seg_starts=t["seg_starts"],
+                               seg_rows=t["seg_rows"])
+        out = fn(*args, num_rows=part.rows_max, tile=part.tile,
+                 block_p=part.block_p)
+        return ops._mask_unvisited(out, t["tile_visited"], part.tile).cpu()
     return ops.mttkrp_local(
         t["indices"], t["values"], t["local_rows"], t["block_to_tile"], facs,
         mode=mode, num_rows=part.rows_max, tile=part.tile,
@@ -74,6 +92,75 @@ def test_kernel_degenerate_shards(cuda, variant, case):
     part, factors, mode, dev = DEGENERATE_SORTED[case]()
     _assert_kernel_equals_plain(part, factors, variant, cuda, dev=dev,
                                 mode=mode)
+
+
+@pytest.mark.parametrize("num_buffers", [2, 3, 4])
+@pytest.mark.parametrize("variant", ["sorted", "fused"])
+@pytest.mark.parametrize("case", sorted(LONG_RUN))
+def test_kernel_long_runs(cuda, case, variant, num_buffers):
+    """Runs of more than CHUNK_BLOCKS blocks, split into work items and
+    combined: bitwise equal to the plain version on the CPU and on the card
+    (deterministic, index-order ``index_add_``), for every ring depth."""
+    part, factors, mode, dev = LONG_RUN[case]()
+    kw = dict(dev=dev, mode=mode, num_buffers=num_buffers)
+    _assert_kernel_equals_plain(part, factors, variant, cuda, **kw)
+    got = _ec(part, factors, variant, cuda, **kw)
+    torch.use_deterministic_algorithms(True)
+    try:
+        ref = _ec(part, factors, variant, cuda, plain=True, **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("variant", ["sorted", "fused"])
+def test_kernel_two_launches_same_bits(cuda, variant):
+    part, factors, mode, dev = LONG_RUN["hot_row_4mode"]()
+    a = _ec(part, factors, variant, cuda, dev=dev, mode=mode)
+    b = _ec(part, factors, variant, cuda, dev=dev, mode=mode)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("variant", ["sorted", "fused"])
+@pytest.mark.parametrize("nmodes,rank,num_buffers", [
+    (2, 4, 2), (3, 6, 3), (4, 64, 4), (5, 64, 4), (5, 128, 2)])
+def test_smem_model_is_what_the_kernel_lays_out(cuda, variant, nmodes, rank,
+                                                num_buffers):
+    """The C entry point refuses a launch whose shared memory differs from
+    its own layout, so a launch at the modelled bytes that runs and matches
+    the plain version shows the model exact; a rank not a multiple of 4
+    takes the 4-byte copies."""
+    part, factors = partitioned_case(nmodes, rank, seed=rank + nmodes)
+    _assert_kernel_equals_plain(part, factors, variant, cuda,
+                                num_buffers=num_buffers)
+
+
+@pytest.mark.parametrize("variant", ["sorted", "fused"])
+def test_oversized_item_kernel_raises_before_launch(cuda, variant):
+    part, factors = partitioned_case(5, 128, seed=3, tile=32)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="shared memory"):
+        _ec(part, factors, variant, cuda, num_buffers=4)
+    assert _build.LAUNCHES == before
+
+
+def test_item_launch_rejects_a_wrong_smem_size(cuda, monkeypatch):
+    """Called with other bytes than its layout needs, the C entry point
+    returns an error instead of launching."""
+    from repro_torch.kernels import mttkrp_fused
+    part, factors = partitioned_case(3, 8, seed=1)
+    a = {k: torch.from_numpy(v).to(cuda)
+         for k, v in shard_arrays(part).items()}
+    facs = [torch.from_numpy(f).to(cuda) for f in factors]
+    args = ops.kernel_args("fused", a["indices"], a["values"],
+                           a["local_rows"], a["block_to_tile"], facs, mode=1,
+                           tile=part.tile)
+    real = _build.variant_smem_bytes
+    monkeypatch.setattr(_build, "variant_smem_bytes",
+                        lambda *x, **k: real(*x, **k) + 16)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        mttkrp_fused.ec_fused(*args, num_rows=part.rows_max, tile=part.tile,
+                              block_p=part.block_p)
 
 
 @pytest.mark.parametrize("variant", ["sorted", "fused", "blocked"])

@@ -3,7 +3,9 @@ tensor runs) against the reference's Pallas kernels in interpret mode, on
 the reference tests' own grids; plus the variant dispatch.
 
 Tolerances: ``sorted`` and ``ref`` are bitwise — both packages add the same
-f32 products in slot order. ``fused`` and ``blocked`` are held to 2e-4 (2e-2
+f32 products in slot order. (The port's ``sorted`` and ``fused`` keep slot
+order within a tile's run of at most ``CHUNK_BLOCKS`` blocks, which every
+run of these grids is; longer runs are tests/test_torch_chunks.py's.) ``fused`` and ``blocked`` are held to 2e-4 (2e-2
 for bf16 rows), the reference's own tolerance for them: its one-hot matrix
 product accumulates in another order than slot order.
 """
@@ -20,8 +22,8 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax.numpy as jnp  # noqa: E402
 
 from _torch_cases import (BLOCKED_PROPERTY, BLOCKED_SHAPES,  # noqa: E402
-                          DEGENERATE_SORTED, blocked_case, empty_shard_case,
-                          partitioned_case, shard_arrays)
+                          DEGENERATE_SORTED, longest_run, blocked_case,
+                          empty_shard_case, partitioned_case, shard_arrays)
 from repro.kernels import ops as j_ops  # noqa: E402
 from repro.kernels.mttkrp_pallas import ec_blocked as j_ec_blocked  # noqa: E402
 from repro.kernels.ref import ec_rows_ref as j_ec_rows_ref  # noqa: E402
@@ -36,6 +38,8 @@ TOL = 2e-4
 def _both(part, factors, variant, dev=0, mode=1, num_buffers=2):
     """(reference in interpret mode, port on CPU) for one shard."""
     a = shard_arrays(part, dev)
+    # the premise of the bitwise tests: every run is one work item
+    assert longest_run(a["block_to_tile"]) <= _build.CHUNK_BLOCKS
     kw = dict(mode=mode, num_rows=part.rows_max, tile=part.tile,
               block_p=part.block_p, variant=variant, num_buffers=num_buffers)
     j = j_ops.mttkrp_local(
@@ -294,13 +298,33 @@ def test_kernel_kwargs_and_autotune(monkeypatch):
 def test_smem_model_and_limit():
     kw = dict(tile=8, block_p=128, rank=32)
     assert ops.variant_smem_bytes("ref", **kw) == 0
-    assert ops.variant_smem_bytes("sorted", **kw) == 128 * 32 * 4
-    assert ops.variant_smem_bytes("fused", **kw) == \
-        ops.variant_smem_bytes("blocked", **kw) == (128 + 8) * 32 * 4 + 512
-    assert ops.variant_smem_bytes("fused", tile=32, block_p=256,
-                                  rank=64) < ops.SMEM_LIMIT
-    assert ops.variant_smem_bytes("sorted", tile=8, block_p=1024,
-                                  rank=64) > ops.SMEM_LIMIT
+    assert ops.variant_smem_bytes("blocked", **kw) == (128 + 8) * 32 * 4 + 512
+    # sorted / fused: 4 warps, each a ring of 2 stages of 8 slots of 2 rows,
+    # the stages' values, the metadata (2 blocks of 2*8+3 descriptor words,
+    # or 2 stages of 8 rows in tile, 16-byte rounded) and the tile
+    ring = dict(nin=2, num_buffers=2)
+    assert ops.variant_smem_bytes("sorted", **kw, **ring) == \
+        4 * 4 * (2 * 8 * 2 * 32 + 16 + 40 + 8 * 32)
+    assert ops.variant_smem_bytes("fused", **kw, **ring) == \
+        4 * 4 * (2 * 8 * 2 * 32 + 16 + 16 + 8 * 32)
+    # block_p does not enter; every case of the tested range fits
+    for variant in ("sorted", "fused"):
+        assert ops.variant_smem_bytes(variant, tile=8, block_p=1024, rank=64,
+                                      nin=4, num_buffers=4) == \
+            ops.variant_smem_bytes(variant, tile=8, block_p=16, rank=64,
+                                   nin=4, num_buffers=4) < ops.SMEM_LIMIT
+        assert ops.variant_smem_bytes(variant, tile=32, block_p=128,
+                                      rank=128, nin=4,
+                                      num_buffers=4) > ops.SMEM_LIMIT
+        with pytest.raises(ValueError, match="nin and num_buffers"):
+            ops.variant_smem_bytes(variant, **kw)
+    b2t = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="shared memory"):
+        _build.item_buffers("sorted", b2t, num_rows=32, tile=32, rank=128,
+                            nin=4, num_buffers=4)
+    with pytest.raises(ValueError, match="R <= 128"):
+        _build.item_buffers("fused", b2t, num_rows=8, tile=8, rank=256,
+                            nin=1, num_buffers=2)
 
 
 def test_wrappers_run_plain_version_on_cpu_without_launching():
