@@ -11,37 +11,39 @@ Phases, each of which exits non-zero on failure:
    register / shared-memory / spill lines.
 3. Data: generates the ``amazon`` profile (seed 0) and plans it with the
    ``sorted`` preset at rank 32, tile 8, block_p 128 on one device; prints
-   per mode the largest tile run, and the work items ``ec_sorted`` and
-   ``ec_fused`` launch over (``_build.tile_chunks``: their number and the
-   largest in blocks, which must be at most ``CHUNK_BLOCKS``).
+   per mode the largest tile run, and the work items that all three kernels
+   launch over (``_build.tile_chunks``: their number and the largest in
+   blocks, which must be at most ``CHUNK_BLOCKS``).
 4. Kernel parity: for every mode, runs ``ec_sorted``, ``ec_fused`` and
    ``ec_blocked`` on that mode's shard and holds each against its plain
    PyTorch version on the card, run under
    ``torch.use_deterministic_algorithms(True)`` so that its ``index_add_``
-   sums in index order as the kernels do: slot order, and for
-   ``ec_sorted``/``ec_fused`` on runs longer than ``CHUNK_BLOCKS`` blocks
-   the fixed two-level order (per-chunk partials, then the chunks in
-   order), which their plain versions follow too. ``ec_sorted`` and
-   ``ec_fused`` must match bitwise; every kernel must be within rtol 1e-5,
-   atol 1e-5·max|plain|. The default atomic ``index_add_`` sums in an
-   order that changes from run to run and differs by a few 1e-5 of
-   max|plain| on this profile's hot rows of ~3 M terms, more than that
-   tolerance. Each kernel is also held against the slot-order ``ref`` (the
-   semantic oracle, deterministic) to 1e-4·max|ref|: the two-level order
-   regroups those rows' sums. Each kernel's arguments come from
-   ``ops.kernel_args``, as on the main path, and the same launch through
-   ``ops.mttkrp_local`` (with its unvisited-tile masking) must give the
-   same bits. On mode 0 each kernel is also compared bitwise with the
-   plain version on the CPU (``ec_sorted`` must match). A 5-mode
+   sums in index order as the kernels do: slot order, and on runs longer
+   than ``CHUNK_BLOCKS`` blocks the fixed two-level order (per-chunk
+   partials, then the chunks in order), which the plain versions follow
+   too. Every kernel must match bitwise, and ``ec_blocked`` must give
+   ``ec_fused``'s bits (one kernel body, one order). The default atomic
+   ``index_add_`` sums in an order that changes from run to run and
+   differs by a few 1e-5 of max|plain| on this profile's hot rows of ~3 M
+   terms; it is timed, and its difference recorded. Each kernel is also
+   held against the slot-order ``ref`` (the semantic oracle,
+   deterministic) to 1e-4·max|ref|: the two-level order regroups those
+   rows' sums. Each kernel's arguments come from ``ops.kernel_args``, as on
+   the main path, and the same launch through ``ops.mttkrp_local`` (with
+   its unvisited-tile masking) must give the same bits. On mode 0 each
+   kernel must also equal the plain version on the CPU bitwise. A 5-mode
    ``twitch`` case covers nin = 4. Each kernel and plain version (default,
    atomic mode) is timed with CUDA events (warm-up, then the median of 20
    runs), and so are the main path's whole EC for the mode
    (``ops.mttkrp_local``) and its argument building (``ops.kernel_args``).
+   On mode 0 each kernel is also timed at every ring depth of its item
+   kernel (2-4 stages), each bitwise equal to the first launch.
 5. Main path: ``api.compile(plan, cfg).run(5)`` with ``kernel.variant``
    ``sorted``, then 2 sweeps each with ``fused`` and ``blocked`` on the same
    plan. Launch counters are set to 0 just before each run and read just
-   after; fits must be finite, non-decreasing, and agree across variants
-   to 1e-4 (the variants sum long runs in other orders).
+   after; fits must be finite and non-decreasing, ``blocked``'s must equal
+   ``fused``'s, and both must agree with ``sorted``'s to 1e-4 (``sorted``
+   regroups the hot rows' sums otherwise than the one-hot variants).
 6. Summary: one JSON line ``{"kernels": [...]}`` (``ms``, ``plain_ms`` and
    ``bound_ms`` summed over the three modes, i.e. one sweep's launches;
    ``launches`` from the main-path run), the card's name and power
@@ -78,7 +80,7 @@ REPLACES = {
 SOURCE = {
     "ec_sorted": "src/repro_torch/kernels/csrc/ec_sorted.cu",
     "ec_fused": "src/repro_torch/kernels/csrc/ec_fused.cu",
-    "ec_blocked": "src/repro_torch/kernels/csrc/ec_onehot.cu",
+    "ec_blocked": "src/repro_torch/kernels/csrc/ec_blocked.cu",
 }
 
 
@@ -117,15 +119,14 @@ def time_ms(fn, reps: int = 20, warmup: int = 2) -> float:
 
 
 def largest_run(b2t: np.ndarray) -> int:
-    """Blocks in the longest run of equal block_to_tile (one CUDA block of
-    ec_blocked)."""
+    """Blocks in the longest run of equal block_to_tile (the hot tile)."""
     starts = np.flatnonzero(np.r_[True, b2t[1:] != b2t[:-1], True])
     return int(np.diff(starts).max())
 
 
 def work_items(b2t: np.ndarray) -> tuple[int, int]:
-    """(number of work items, blocks in the largest) of ec_sorted /
-    ec_fused, from the bookkeeping their wrappers launch over, on the card."""
+    """(number of work items, blocks in the largest) of the three kernels,
+    from the bookkeeping their wrappers launch over, on the card."""
     import torch
     from repro_torch.kernels import _build
     starts = _build.tile_chunks(torch.from_numpy(b2t).cuda()).item_starts
@@ -174,6 +175,25 @@ def kernel_cases(dev, part, factors, mode):
     }
 
 
+def ring_depths(name, kern, args, geo, got) -> dict:
+    """The kernel's ms at every ring depth its item kernel takes (2 to
+    ``MAX_NUM_BUFFERS``; ``ec_blocked``'s wrapper fixes one, so its launch
+    function is called), each launch bitwise equal to ``got``."""
+    import torch
+    from repro_torch.kernels import _build, mttkrp_blocked
+    ms = {}
+    for depth in range(2, _build.MAX_NUM_BUFFERS + 1):
+        launch = mttkrp_blocked._launch if name == "ec_blocked" else kern
+
+        def run():
+            return launch(*args, num_buffers=depth, **geo)
+
+        if not torch.equal(run(), got):
+            fail(f"{name}: ring depth {depth} changes the bits")
+        ms[depth] = time_ms(run)
+    return ms
+
+
 @contextlib.contextmanager
 def slot_order():
     """CUDA ``index_add_`` in slot order (its deterministic algorithm)."""
@@ -207,6 +227,7 @@ def parity(plan, rank: int, *, timed: bool, bitwise_mode: int | None,
     factors = als.init_factors(plan, rank, seed=1, device="cuda")
     recs = {k: [] for k in KERNELS}
     for mode, part in enumerate(plan.modes):
+        outs = {}
         dev = mttkrp.shard_plan_mode(part, "cuda")
         cases = kernel_cases(dev, part, factors, mode)
         # the semantic oracle: slot-order ref, deterministic on the card
@@ -240,9 +261,13 @@ def parity(plan, rank: int, *, timed: bool, bitwise_mode: int | None,
             torch.cuda.synchronize()
             err = check_close(f"{label} {name} mode {mode}", got, ref)
             bitwise_on_card = bool(torch.equal(got, ref))
-            if name != "ec_blocked" and not bitwise_on_card:
+            if not bitwise_on_card:
                 fail(f"{label} {name} mode {mode} is not bitwise equal to "
                      f"its deterministic plain version on the card")
+            outs[name] = got
+            if name == "ec_blocked" and not torch.equal(got,
+                                                        outs["ec_fused"]):
+                fail(f"{label} ec_blocked mode {mode} differs from ec_fused")
             d_slot = float((got - slot_ref).abs().max())
             scale = float(slot_ref.abs().max())
             if d_slot > REF_RTOL * scale:
@@ -265,9 +290,9 @@ def parity(plan, rank: int, *, timed: bool, bitwise_mode: int | None,
                             else x.cpu() for x in args]
                 ref_cpu = plain(*cpu_args, **geo)
                 rec["bitwise"] = bool(torch.equal(got.cpu(), ref_cpu))
-                if name == "ec_sorted" and not rec["bitwise"]:
+                if not rec["bitwise"]:
                     d = float((got.cpu() - ref_cpu).abs().max())
-                    fail(f"ec_sorted mode {mode} is not bitwise equal to the "
+                    fail(f"{name} mode {mode} is not bitwise equal to the "
                          f"CPU plain version (max diff {d:.3e})")
                 del ref_cpu, cpu_args
             if timed:
@@ -281,6 +306,8 @@ def parity(plan, rank: int, *, timed: bool, bitwise_mode: int | None,
                 # recorded, not checked: the default (atomic) plain path
                 rec["max_abs_diff_atomic"] = float(
                     (got - plain(*args, **geo)).abs().max())
+            if timed and mode == bitwise_mode:
+                rec["ring_ms"] = ring_depths(name, kern, args, geo, got)
             recs[name].append(rec)
             print(f"{label} {name} mode {mode}: max_abs_err={err:.3e} "
                   f"(max|plain|={rec['max_abs_ref']:.3e}, bitwise on card "
@@ -292,10 +319,12 @@ def parity(plan, rank: int, *, timed: bool, bitwise_mode: int | None,
                      f"plain|={rec['max_abs_diff_atomic']:.3e} "
                      f"mttkrp_local_ms={rec['dispatch_ms']:.3f} "
                      f"kernel_args_ms={rec['args_ms']:.3f}"
-                     if timed else ""),
+                     if timed else "")
+                  + (f" ring_ms={rec['ring_ms']}" if "ring_ms" in rec
+                     else ""),
                   flush=True)
             del got, ref
-        del dev, cases, slot_ref
+        del dev, cases, slot_ref, outs
         torch.cuda.empty_cache()
     return recs
 
@@ -378,8 +407,9 @@ def main() -> None:
         print(f"  mode {d}: rows_max={p.rows_max} nblocks={p.nblocks} "
               f"largest run {runs[d]} blocks ({runs[d] * p.block_p} slots, "
               f"{runs[d] / p.nblocks:.1%} of the mode's blocks); "
-              f"ec_sorted/ec_fused work items {items[d][0]}, largest "
-              f"{items[d][1]} blocks (CHUNK_BLOCKS {_build.CHUNK_BLOCKS})")
+              f"ec_sorted/ec_fused/ec_blocked work items {items[d][0]}, "
+              f"largest {items[d][1]} blocks (CHUNK_BLOCKS "
+              f"{_build.CHUNK_BLOCKS})")
         if items[d][1] > _build.CHUNK_BLOCKS:
             fail(f"mode {d}: a work item of {items[d][1]} blocks exceeds "
                  f"CHUNK_BLOCKS = {_build.CHUNK_BLOCKS}")
@@ -405,6 +435,7 @@ def main() -> None:
         fail(f"sorted fits decrease: {fits}")
     launches = {"ec_sorted": counts["ec_sorted"]}
     walls = {"sorted": wall}
+    vfits_of = {}
     for variant in ("fused", "blocked"):
         vcfg = cfg.with_overrides({"kernel.variant": variant})
         vfits, vcounts, vwall = run_solver(api, plan, vcfg, AB_SWEEPS,
@@ -417,8 +448,12 @@ def main() -> None:
         if diff > FIT_TOL:
             fail(f"{variant} fits {vfits} differ from sorted's "
                  f"{fits[:AB_SWEEPS]} by {diff:.2e}")
+        vfits_of[variant] = vfits
         launches[name] = vcounts[name]
         walls[variant] = vwall
+    if not np.array_equal(vfits_of["blocked"], vfits_of["fused"]):
+        fail(f"blocked fits {vfits_of['blocked']} are not fused's "
+             f"{vfits_of['fused']}")
 
     phase("summary")
     kernels = []
@@ -449,7 +484,9 @@ def main() -> None:
               "shard_bytes": shard_bytes, "peak_alloc_bytes": peak,
               "host_peak_rss_bytes":
                   resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
-              "sorted_fits": fits.tolist(), "sweep_wall_s": walls,
+              "sorted_fits": fits.tolist(),
+              "ab_fits": {k: v.tolist() for k, v in vfits_of.items()},
+              "sweep_wall_s": walls,
               "per_mode": recs, "kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

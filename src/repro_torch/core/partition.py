@@ -504,10 +504,11 @@ def validate_plan(plan: CPPlan) -> CPPlan:
     or the intra-group reduce-scatter would hand each member a fractional
     row range. The EC kernels add a second: on every device, the blocks of
     a tile form one run of consecutive blocks (pads revisit the last used
-    tile), since each run goes to one CUDA block that writes its tile
-    without atomics; a tile visited again after another would be written
-    by two. Returns ``plan`` unchanged so it composes as a pass-through
-    (``api.plan`` and ``api.compile`` both run it)."""
+    tile), since each run's tile is written once, without atomics, by its
+    one work item or by ``ec_combine`` over its items; a tile visited again
+    after another would be written twice. Returns ``plan`` unchanged so it
+    composes as a pass-through (``api.plan`` and ``api.compile`` both run
+    it)."""
     for part in plan.modes:
         for dev, b2t in enumerate(part.block_to_tile):
             run_tiles = b2t[np.r_[True, b2t[1:] != b2t[:-1]]] if b2t.size \

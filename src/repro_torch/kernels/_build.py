@@ -14,10 +14,10 @@ refused launch never runs and a later synchronise would not report it.
 Also here: the launch counters (one plain int per kernel, raised by the
 wrapper where it launches), the shared-memory model the wrappers check
 before launching, the argument checks, and the index bookkeeping that
-splits the blocks among CUDA blocks: :func:`tile_runs` (one CUDA block per
-run of consecutive blocks of one output tile, ``ec_blocked``) and
-:func:`tile_chunks` (runs cut into work items of at most
-:data:`CHUNK_BLOCKS` blocks, one warp each, ``ec_sorted``/``ec_fused``).
+splits the blocks among warps: :func:`tile_chunks` cuts each run of
+consecutive blocks of one output tile (:func:`tile_runs`) into work items
+of at most :data:`CHUNK_BLOCKS` blocks, one warp each, for all three
+kernels.
 """
 from __future__ import annotations
 
@@ -34,24 +34,24 @@ import torch
 
 __all__ = ["SOURCES", "SMEM_LIMIT", "MAX_NUM_BUFFERS", "LAUNCHES",
            "reset_launch_counts", "build", "kernel_function", "check",
-           "check_blocking", "require", "launch_buffers", "item_buffers",
+           "check_blocking", "require", "item_buffers",
            "tile_runs", "tile_chunks", "TileChunks", "CHUNK_BLOCKS",
            "STAGE_SLOTS", "ITEM_WARPS", "MAX_ITEM_RANK",
            "variant_smem_bytes", "copy_width", "cuda_stream"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-# One shared library per source (ec_onehot.cu holds ec_blocked).
+# One shared library per source.
 SOURCES = {"ec_sorted": "ec_sorted.cu", "ec_fused": "ec_fused.cu",
-           "ec_onehot": "ec_onehot.cu"}
+           "ec_blocked": "ec_blocked.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Shared memory one CUDA block may use on Hopper (227 KiB).
 SMEM_LIMIT = 232_448
 # The TPU kernels' DMA ring depth range (mttkrp_sorted.py:157-159): the
-# depth of the ec_sorted/ec_fused cp.async ring of gathered factor rows.
+# depth of the item kernel's cp.async ring of input rows.
 MAX_NUM_BUFFERS = 4
-# Kernel blocks per work item of ec_sorted/ec_fused. A tile's run of more
+# Kernel blocks per work item of the EC kernels. A tile's run of more
 # blocks is split into items of this many (the last may be shorter), whose
 # partial sums ec_combine adds in item order: the bits of such a run depend
 # on this number, so it is fixed, and never derived from the card. 16 keeps
@@ -208,31 +208,12 @@ def require(t, name: str, *, shape, dtypes, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_smem(variant: str, smem: int, geometry: str) -> None:
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"ec_{variant} needs {smem} B of shared memory per "
-                         f"block ({geometry}); the limit is {SMEM_LIMIT}")
-
-
-def launch_buffers(variant: str, block_to_tile: torch.Tensor, *,
-                   num_rows: int, tile: int, block_p: int, rank: int):
-    """What an ``ec_blocked`` launch allocates: raise if its shared memory
-    per block exceeds :data:`SMEM_LIMIT`, then return the zeroed
-    ``(num_rows, rank)`` f32 output (tiles no run visits stay 0), the tile
-    runs and the shared-memory bytes to request."""
-    smem = variant_smem_bytes(variant, tile=tile, block_p=block_p, rank=rank)
-    _check_smem(variant, smem, f"tile={tile}, block_p={block_p}, R={rank}")
-    out = torch.zeros((num_rows, rank), dtype=torch.float32,
-                      device=block_to_tile.device)
-    return out, tile_runs(block_to_tile), smem
-
-
 def item_buffers(variant: str, block_to_tile: torch.Tensor, *,
                  num_rows: int, tile: int, rank: int, nin: int,
                  num_buffers: int):
-    """What an ``ec_sorted`` / ``ec_fused`` launch allocates: raise if the
-    rank is above :data:`MAX_ITEM_RANK` or the shared memory per block
-    exceeds :data:`SMEM_LIMIT`, then return the zeroed ``(num_rows, rank)``
+    """What an EC kernel launch allocates: raise if the rank is above
+    :data:`MAX_ITEM_RANK` or the shared memory per block exceeds
+    :data:`SMEM_LIMIT`, then return the zeroed ``(num_rows, rank)``
     f32 output, the work items (:func:`tile_chunks`), the scratch buffer of
     ``(tile, rank)`` f32 partials of split runs (``torch.empty``: every
     partial the combine reads is written first) and the shared-memory
@@ -240,10 +221,13 @@ def item_buffers(variant: str, block_to_tile: torch.Tensor, *,
     if rank > MAX_ITEM_RANK:
         raise ValueError(f"ec_{variant} takes R <= {MAX_ITEM_RANK}, got "
                          f"{rank}")
-    smem = variant_smem_bytes(variant, tile=tile, block_p=0, rank=rank,
-                              nin=nin, num_buffers=num_buffers)
-    _check_smem(variant, smem, f"tile={tile}, R={rank}, nin={nin}, "
-                f"num_buffers={num_buffers}")
+    smem = variant_smem_bytes(variant, tile=tile, rank=rank, nin=nin,
+                              num_buffers=num_buffers)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"ec_{variant} needs {smem} B of shared memory per "
+                         f"block (tile={tile}, R={rank}, nin={nin}, "
+                         f"num_buffers={num_buffers}); the limit is "
+                         f"{SMEM_LIMIT}")
     dev = block_to_tile.device
     out = torch.zeros((num_rows, rank), dtype=torch.float32, device=dev)
     chunks = tile_chunks(block_to_tile)
@@ -259,9 +243,8 @@ def tile_runs(block_to_tile: torch.Tensor) -> torch.Tensor:
     ``i`` spans ``[starts[i], starts[i + 1])``, and ``starts[i] == nblocks``
     marks an index past the last run.
 
-    Built with torch ops on the tensor's device and without a host sync:
-    the grid is launched with ``nblocks`` CUDA blocks (an upper bound on the
-    run count) and those past the last run return at once. By the partition
+    Built with torch ops on the tensor's device and without a host sync;
+    :func:`tile_chunks` cuts these runs into work items. By the partition
     contract (core/partition.py) the blocks of a tile are consecutive, so
     each visited tile is exactly one run."""
     nb = block_to_tile.numel()
@@ -278,7 +261,7 @@ def tile_runs(block_to_tile: torch.Tensor) -> torch.Tensor:
 
 
 class TileChunks(NamedTuple):
-    """Work items of ``ec_sorted`` / ``ec_fused`` (see :func:`tile_chunks`).
+    """Work items of the EC kernels (see :func:`tile_chunks`).
 
     ``item_starts``: ``(nblocks + 1,)`` int32; item ``i`` spans blocks
     ``[item_starts[i], item_starts[i + 1])`` and ``item_starts[i] ==
@@ -345,31 +328,29 @@ def tile_chunks(block_to_tile: torch.Tensor,
                       split[:, :n_split].contiguous(), n_parts)
 
 
-def variant_smem_bytes(variant: str, *, tile: int, block_p: int,
-                       rank: int, nin: int | None = None,
+def variant_smem_bytes(variant: str, *, tile: int, rank: int,
+                       nin: int | None = None,
                        num_buffers: int | None = None) -> int:
     """Dynamic shared memory one CUDA block of the variant's kernel uses —
     the exact amount its wrapper requests at launch, checked against
     :data:`SMEM_LIMIT`. The counterpart of the reference's
     ``variant_vmem_bytes``.
 
-    ``sorted`` and ``fused`` (``nin`` and ``num_buffers`` required;
-    ``block_p`` does not enter) run :data:`ITEM_WARPS` work items per CUDA
-    block, each warp owning a region of 4-byte words, every part rounded up
-    to 16 bytes: the ``cp.async`` ring of ``num_buffers`` stages of
-    :data:`STAGE_SLOTS` slots, each slot's ``nin`` gathered f32 factor rows
-    of ``rank``; the stages' values; per stage its slots' ``row_in_tile``
-    (``fused``) or per in-flight block its ``2·tile + 3`` segment
-    descriptor words (``sorted``); and the ``(tile, rank)`` f32 tile
-    accumulator. ``blocked`` stages one block's products ``E`` (``block_p ×
-    rank`` f32), the ``(tile, rank)`` accumulator and the block's
-    ``row_in_tile`` slab (``block_p`` int32). ``ref`` launches no kernel
-    and models as 0."""
+    Every kernel variant (``nin`` and ``num_buffers`` required) runs
+    :data:`ITEM_WARPS` work items per CUDA block, each warp owning a region
+    of 4-byte words, every part rounded up to 16 bytes: the ``cp.async``
+    ring of ``num_buffers`` stages of :data:`STAGE_SLOTS` slots, each slot's
+    ``nin`` f32 input rows of ``rank`` (factor rows gathered in the kernel,
+    or for ``blocked`` the pre-gathered rows, bf16 ones cast to f32 before
+    the launch); the stages' values; per stage its slots' ``row_in_tile``
+    (``fused``, ``blocked``) or per in-flight block its ``2·tile + 3``
+    segment descriptor words (``sorted``); and the ``(tile, rank)`` f32
+    tile accumulator. No index word is staged: a stage's indices live in
+    registers, and ``blocked`` has none. ``ref`` launches no kernel and
+    models as 0."""
     if variant == "ref":
         return 0
-    if variant == "blocked":
-        return block_p * rank * 4 + tile * rank * 4 + block_p * 4
-    if variant not in ("sorted", "fused"):
+    if variant not in ("sorted", "fused", "blocked"):
         raise ValueError(f"unknown EC variant {variant!r}")
     if nin is None or num_buffers is None:
         raise ValueError(f"ec_{variant}'s shared memory depends on nin and "
@@ -378,8 +359,8 @@ def variant_smem_bytes(variant: str, *, tile: int, block_p: int,
     def words16(n):
         return -(-n // 4) * 4
 
-    meta = (num_buffers * STAGE_SLOTS if variant == "fused"
-            else num_buffers * (2 * tile + 3))
+    meta = (num_buffers * (2 * tile + 3) if variant == "sorted"
+            else num_buffers * STAGE_SLOTS)
     warp_words = (words16(num_buffers * STAGE_SLOTS * nin * rank)
                   + words16(num_buffers * STAGE_SLOTS) + words16(meta)
                   + words16(tile * rank))

@@ -1,40 +1,37 @@
-// Pieces shared by the EC kernels (ec_sorted.cu, ec_fused.cu, ec_onehot.cu).
+// Pieces shared by the EC kernels (ec_sorted.cu, ec_fused.cu, ec_blocked.cu).
 //
 // Arithmetic is written with __fmul_rn / __fadd_rn so that nvcc cannot
 // contract a multiply and an add into an FMA: the products and sums must
 // round exactly as the plain f32 versions round them.
 //
-// Two launch layouts:
-//
-// * ec_blocked (ec_onehot.cu): one CUDA block per entry of `run_starts`
-//   (kernels/_build.py::tile_runs). Block i owns the run of consecutive
-//   kernel blocks [run_starts[i], run_starts[i+1]) that all map to one output
-//   tile; a block whose start is `nblocks` has no run and returns at once.
-//
-// * ec_sorted and ec_fused: one warp per work item (kernels/_build.py::
-//   tile_chunks), EC_ITEM_WARPS items per CUDA block. An item is at most
-//   CHUNK_BLOCKS consecutive kernel blocks of one run. A run of at most that
-//   many blocks is one item, which sums each row in slot order and writes
-//   its tile: the same bits as the slot-order reference. A longer run is
-//   split; each item writes a (tile, R) f32 partial (0 where it touched no
-//   row), and ec_combine then sets out[row] = ((0 + p_0) + p_1) + ... over
-//   the run's partials in item order. That fixed two-level order is what
-//   the plain versions reproduce (kernels/ref.py::ec_rows_chunked), so the
-//   result is deterministic and does not depend on the card.
+// Launch layout, the same for all three: one warp per work item
+// (kernels/_build.py::tile_chunks), EC_ITEM_WARPS items per CUDA block. An
+// item is at most CHUNK_BLOCKS consecutive kernel blocks of one run (the
+// blocks of one output tile). A run of at most that many blocks is one item,
+// which sums each row in slot order and writes its tile: the same bits as
+// the slot-order reference. A longer run is split; each item writes a
+// (tile, R) f32 partial (0 where it touched no row), and ec_combine then
+// sets out[row] = ((0 + p_0) + p_1) + ... over the run's partials in item
+// order. That fixed two-level order is what the plain versions reproduce
+// (kernels/ref.py::ec_rows_chunked), so the result is deterministic and does
+// not depend on the card.
 //
 // Inside an item (ec_item_kernel) the warp walks its slots in stages of
 // EC_STAGE_SLOTS. A ring of `nbuf` stages in shared memory is filled with
-// cp.async: each slot's nin factor rows (16 bytes a thread where R % 4 == 0),
-// its value, and the variant's per-stage metadata. The indices of a stage are
-// loaded one step before its rows are requested, so no row load waits on its
-// index at use time. Lanes span the R columns; the warp sums each row in
-// slot order in registers, moving a row's running sum to the shared (tile,
-// R) accumulator only when the row changes. No tensor cores (a one-hot
-// product in TF32 would lose f32 parity and is pure scatter overhead) and no
-// TMA (it moves tiles, not scattered rows).
+// cp.async: each slot's nin input rows (16 bytes a thread where R % 4 == 0),
+// its value, and the variant's per-stage metadata. Where the rows come from
+// is fixed at compile time: rows of the factor matrices named by
+// input_indices (ec_sorted, ec_fused; a stage's indices are loaded one step
+// before its rows are requested, so no row load waits on its index at use
+// time), or row `slot` of the (nnz, R) arrays gathered before the kernel
+// (ec_blocked; a stage is then one contiguous stretch of each array). Lanes
+// span the R columns; the warp sums each row in slot order in registers,
+// moving a row's running sum to the shared (tile, R) accumulator only when
+// the row changes. No tensor cores (a one-hot product in TF32 would lose f32
+// parity and is pure scatter overhead) and no TMA (it moves tiles, not
+// scattered rows).
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,26 +44,11 @@
 #define EC_MAX_COLS 4  // columns per lane: R <= 128
 #define EC_FULL_MASK 0xffffffffu
 
-// Row pointers of the nin input operands: factor matrices (padded_w, R)
+// Row pointers of the nin input operands, f32: factor matrices (padded_w, R)
 // for the in-kernel gather, or pre-gathered (nnz, R) rows for ec_blocked.
-template <typename T>
 struct EcInputs {
-  const T* p[EC_MAX_NIN];
+  const float* p[EC_MAX_NIN];
 };
-
-__device__ __forceinline__ float ec_to_f32(float x) { return x; }
-__device__ __forceinline__ float ec_to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// The run this CUDA block owns; false if it owns none.
-__device__ __forceinline__ bool ec_block_run(const int* run_starts,
-                                             int nblocks, int* b0, int* b1) {
-  *b0 = run_starts[blockIdx.x];
-  if (*b0 >= nblocks) return false;
-  *b1 = run_starts[blockIdx.x + 1];
-  return true;
-}
 
 // ---------------------------------------------------------------- cp.async
 
@@ -105,10 +87,10 @@ __device__ __forceinline__ void ec_cp_async_wait(int pending) {
 
 // ------------------------------------------------------------- work items
 
-// Everything an item kernel reads, shared by ec_sorted and ec_fused.
+// Everything an item kernel reads, shared by the three variants.
 struct EcItemArgs {
   const float* values;         // (nnz,)
-  const int* input_indices;    // (nnz, nin)
+  const int* input_indices;    // (nnz, nin); unread for pre-gathered rows
   const int* block_to_tile;    // (nblocks,)
   const int* item_starts;      // (n_items + 1,), see tile_chunks
   const int* item_part;        // (n_items,)
@@ -124,7 +106,7 @@ __host__ __device__ __forceinline__ int ec_words16(int n) {
 
 // Per-warp shared-memory region, in 4-byte words, each part 16-byte
 // aligned (kernels/_build.py::variant_smem_bytes mirrors it):
-//   rows  nbuf * EC_STAGE_SLOTS * nin * R f32   the gathered factor rows
+//   rows  nbuf * EC_STAGE_SLOTS * nin * R f32   the slots' input rows
 //   vals  nbuf * EC_STAGE_SLOTS f32             the slots' values
 //   meta  meta_words int32                      the variant's metadata
 //   tacc  tile * R f32                          the tile accumulator
@@ -144,11 +126,12 @@ __host__ __device__ __forceinline__ int ec_warp_words(int nin, int R,
 //   int row(const int* m, int u, int blk, int q, int j, int nbuf,
 //           int tile): the tile row of slot j of stage u (warp-uniform),
 //           called for j = 0, 1, ... of every stage in order.
-// VEC is 4 (16-byte copies;
-// R % 4 == 0 and 16-byte aligned factors) or 1.
-template <int NIN, int VEC, typename Meta>
+// PRE: operand w of slot s is row s of the pre-gathered F.p[w] (ec_blocked),
+// not row input_indices[s, w] of the factor matrix F.p[w].
+// VEC is 4 (16-byte copies; R % 4 == 0 and 16-byte aligned rows) or 1.
+template <int NIN, int VEC, bool PRE, typename Meta>
 __global__ void __launch_bounds__(EC_ITEM_THREADS)
-    ec_item_kernel(EcItemArgs a, EcInputs<float> F, Meta meta) {
+    ec_item_kernel(EcItemArgs a, EcInputs F, Meta meta) {
   extern __shared__ __align__(16) float ec_smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -174,14 +157,16 @@ __global__ void __launch_bounds__(EC_ITEM_THREADS)
   for (int i = lane; i < tile * R; i += 32) tacc[i] = 0.0f;
 
   // Lane l < ns * NIN holds index l of the stage: slot l / NIN, operand
-  // l % NIN, as input_indices is laid out.
+  // l % NIN, as input_indices is laid out. Pre-gathered rows need none.
   int idx = 0;
   auto load_idx = [&](int u) {
-    if (u >= nst) return;
-    const int blk = b0 + u / spb, q = (u % spb) * EC_STAGE_SLOTS;
-    const int ns = min(EC_STAGE_SLOTS, block_p - q);
-    const int64_t s0 = (int64_t)blk * block_p + q;
-    if (lane < ns * NIN) idx = __ldg(a.input_indices + s0 * NIN + lane);
+    if constexpr (!PRE) {
+      if (u >= nst) return;
+      const int blk = b0 + u / spb, q = (u % spb) * EC_STAGE_SLOTS;
+      const int ns = min(EC_STAGE_SLOTS, block_p - q);
+      const int64_t s0 = (int64_t)blk * block_p + q;
+      if (lane < ns * NIN) idx = __ldg(a.input_indices + s0 * NIN + lane);
+    }
   };
   // Request stage u into ring buffer u % nbuf; always commit a group, so
   // the wait below counts stages.
@@ -195,7 +180,11 @@ __global__ void __launch_bounds__(EC_ITEM_THREADS)
       for (int base = 0; base < ncopy; base += 32) {
         const int c = base + lane;
         const int jw = c / cpr;  // slot * NIN + operand
-        const int row = __shfl_sync(EC_FULL_MASK, idx, jw & 31);
+        int64_t row;
+        if constexpr (PRE)
+          row = s0 + jw / NIN;
+        else
+          row = __shfl_sync(EC_FULL_MASK, idx, jw & 31);
         if (c < ncopy) {
           const int k = (c - jw * cpr) * VEC;
           const int w = jw % NIN;
@@ -203,7 +192,7 @@ __global__ void __launch_bounds__(EC_ITEM_THREADS)
 #pragma unroll
           for (int o = 1; o < NIN; ++o)
             if (w == o) f = F.p[o];
-          const float* src = f + (int64_t)row * R + k;
+          const float* src = f + row * R + k;
           if (VEC == 4)
             ec_cp_async16(dst + jw * R + k, src);
           else
@@ -281,6 +270,27 @@ __global__ void __launch_bounds__(EC_ITEM_THREADS)
   for (int i = lane; i < tile * R; i += 32) dst[i] = tacc[i];
 }
 
+// The one-hot variants' metadata (ec_fused, ec_blocked): one ring entry per
+// stage, its slots' row_in_tile.
+struct RowInTileMeta {
+  const int* row_in_tile;  // (nnz,)
+
+  __host__ __device__ static int words(int tile, int nbuf) {
+    return nbuf * EC_STAGE_SLOTS;
+  }
+  __device__ __forceinline__ void issue(int* m, int u, int blk, int q, int ns,
+                                        int64_t s0, int lane, int nbuf,
+                                        int tile) const {
+    if (lane < ns)
+      ec_cp_async4(m + (u % nbuf) * EC_STAGE_SLOTS + lane,
+                   row_in_tile + s0 + lane);
+  }
+  __device__ __forceinline__ int row(const int* m, int u, int blk, int q,
+                                      int j, int nbuf, int tile) const {
+    return m[(u % nbuf) * EC_STAGE_SLOTS + j];
+  }
+};
+
 // ec_combine: one CUDA block per split run (split is (3, n_split): first
 // partial, partial count, tile; -1 past the last). Each element of the
 // run's tile is the sum of its partials in item order, from 0.
@@ -318,24 +328,24 @@ static cudaError_t ec_launch(Kernel kernel, int grid, int threads, int smem,
 
 // The item kernel for nin in [1, 4] and the copy width, then ec_combine on
 // the same stream where the launch has split runs (n_split > 0).
-template <int NIN, typename Meta>
-static cudaError_t ec_items_nin(EcItemArgs a, EcInputs<float> F, Meta meta,
-                                int vec, int smem, cudaStream_t st) {
+template <int NIN, bool PRE, typename Meta>
+static cudaError_t ec_items_nin(EcItemArgs a, EcInputs F, Meta meta, int vec,
+                                int smem, cudaStream_t st) {
   const int grid = (a.n_items + EC_ITEM_WARPS - 1) / EC_ITEM_WARPS;
   if (vec == 4)
-    return ec_launch(ec_item_kernel<NIN, 4, Meta>, grid, EC_ITEM_THREADS,
-                     smem, st, a, F, meta);
-  return ec_launch(ec_item_kernel<NIN, 1, Meta>, grid, EC_ITEM_THREADS, smem,
-                   st, a, F, meta);
+    return ec_launch(ec_item_kernel<NIN, 4, PRE, Meta>, grid,
+                     EC_ITEM_THREADS, smem, st, a, F, meta);
+  return ec_launch(ec_item_kernel<NIN, 1, PRE, Meta>, grid, EC_ITEM_THREADS,
+                   smem, st, a, F, meta);
 }
 
 // Raises (returns an error) unless `smem` is exactly what the Python model
 // (variant_smem_bytes) computed for this geometry.
-template <typename Meta>
-static cudaError_t ec_items_and_combine(EcItemArgs a, EcInputs<float> F,
-                                        Meta meta, int nin, int vec,
-                                        const int* split, int n_split,
-                                        int smem, cudaStream_t st) {
+template <bool PRE, typename Meta>
+static cudaError_t ec_items_and_combine(EcItemArgs a, EcInputs F, Meta meta,
+                                        int nin, int vec, const int* split,
+                                        int n_split, int smem,
+                                        cudaStream_t st) {
   a.warp_words = ec_warp_words(nin, a.R, a.tile, a.nbuf,
                                Meta::words(a.tile, a.nbuf));
   if (smem != EC_ITEM_WARPS * a.warp_words * 4 || a.nbuf < 2 ||
@@ -343,10 +353,10 @@ static cudaError_t ec_items_and_combine(EcItemArgs a, EcInputs<float> F,
     return cudaErrorInvalidValue;
   cudaError_t e;
   switch (nin) {
-    case 1: e = ec_items_nin<1>(a, F, meta, vec, smem, st); break;
-    case 2: e = ec_items_nin<2>(a, F, meta, vec, smem, st); break;
-    case 3: e = ec_items_nin<3>(a, F, meta, vec, smem, st); break;
-    case 4: e = ec_items_nin<4>(a, F, meta, vec, smem, st); break;
+    case 1: e = ec_items_nin<1, PRE>(a, F, meta, vec, smem, st); break;
+    case 2: e = ec_items_nin<2, PRE>(a, F, meta, vec, smem, st); break;
+    case 3: e = ec_items_nin<3, PRE>(a, F, meta, vec, smem, st); break;
+    case 4: e = ec_items_nin<4, PRE>(a, F, meta, vec, smem, st); break;
     default: return cudaErrorInvalidValue;
   }
   if (e != cudaSuccess || n_split == 0) return e;

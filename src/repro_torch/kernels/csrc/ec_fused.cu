@@ -9,8 +9,9 @@
 // On the TPU each block's commit was onehot(row_in_tile)^T @ E on the matrix
 // unit into a VMEM-resident (tile, R) tile. Here there is no one-hot product
 // (on tensor cores in f32 it would be TF32 and lose parity; it is pure
-// scatter overhead). Design (see ec_common.cuh): runs of blocks of one tile
-// are cut into work items of at most CHUNK_BLOCKS blocks, one warp each. The
+// scatter overhead). Design (see ec_common.cuh, whose item kernel and
+// RowInTileMeta ec_blocked shares): runs of blocks of one tile are cut into
+// work items of at most CHUNK_BLOCKS blocks, one warp each. The
 // warp gathers its slots' factor rows, values and row_in_tile through a
 // cp.async ring of `num_buffers` stages and adds each slot's products into
 // its row in slot order: a register sum per column while consecutive slots
@@ -22,26 +23,6 @@
 // every run and card.
 #include "ec_common.cuh"
 
-// One ring entry per stage: its slots' row_in_tile.
-struct FusedMeta {
-  const int* row_in_tile;  // (nnz,)
-
-  __host__ __device__ static int words(int tile, int nbuf) {
-    return nbuf * EC_STAGE_SLOTS;
-  }
-  __device__ __forceinline__ void issue(int* m, int u, int blk, int q, int ns,
-                                        int64_t s0, int lane, int nbuf,
-                                        int tile) const {
-    if (lane < ns)
-      ec_cp_async4(m + (u % nbuf) * EC_STAGE_SLOTS + lane,
-                   row_in_tile + s0 + lane);
-  }
-  __device__ __forceinline__ int row(const int* m, int u, int blk, int q,
-                                      int j, int nbuf, int tile) const {
-    return m[(u % nbuf) * EC_STAGE_SLOTS + j];
-  }
-};
-
 extern "C" int ec_fused_launch(
     const float* values, const int* row_in_tile, const int* block_to_tile,
     const int* item_starts, const int* item_part, const int* split,
@@ -52,8 +33,8 @@ extern "C" int ec_fused_launch(
   EcItemArgs a = {values, input_indices, block_to_tile, item_starts,
                   item_part, out, partials, n_items, nblocks, block_p,
                   tile, R, nbuf, 0};
-  return ec_items_and_combine(a, EcInputs<float>{{f0, f1, f2, f3}},
-                              FusedMeta{row_in_tile}, nin, vec, split,
-                              n_split, smem,
-                              static_cast<cudaStream_t>(stream));
+  return ec_items_and_combine<false>(a, EcInputs{{f0, f1, f2, f3}},
+                                     RowInTileMeta{row_in_tile}, nin, vec,
+                                     split, n_split, smem,
+                                     static_cast<cudaStream_t>(stream));
 }

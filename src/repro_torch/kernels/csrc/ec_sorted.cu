@@ -77,7 +77,7 @@ extern "C" int ec_sorted_launch(
                   item_part, out, partials, n_items, nblocks, block_p,
                   tile, R, nbuf, 0};
   SortedMeta meta = {seg_starts, seg_rows, tile + 1, nullptr, 0, 0, 0};
-  return ec_items_and_combine(a, EcInputs<float>{{f0, f1, f2, f3}}, meta,
-                              nin, vec, split, n_split, smem,
-                              static_cast<cudaStream_t>(stream));
+  return ec_items_and_combine<false>(a, EcInputs{{f0, f1, f2, f3}}, meta,
+                                     nin, vec, split, n_split, smem,
+                                     static_cast<cudaStream_t>(stream));
 }

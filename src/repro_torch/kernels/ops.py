@@ -6,8 +6,7 @@ interchangeable variants:
 
   ``ref``      plain PyTorch gather + ``index_add_`` (the semantic oracle)
   ``blocked``  ``index_select`` pre-gather of (nnz, R) input rows + the
-               tile-accumulator CUDA kernel (mttkrp_blocked.ec_blocked);
-               slot order
+               tile-accumulator CUDA kernel (mttkrp_blocked.ec_blocked)
   ``fused``    the factor gather inside the kernel — no gathered
                intermediate (mttkrp_fused.ec_fused)
   ``sorted``   the in-kernel gather + segmented reduction over the
@@ -15,10 +14,11 @@ interchangeable variants:
                seg_starts/seg_rows descriptors, see
                core.partition.block_segment_descriptors)
 
-``sorted`` and ``fused`` equal the slot-order ``ref`` bitwise on every
-tile whose run is at most ``_build.CHUNK_BLOCKS`` blocks; a longer run is
-summed in a fixed two-level order (per-chunk partials in slot order, then
-the chunks in order, ``ref.ec_rows_chunked``), deterministically.
+``blocked``, ``fused`` and ``sorted`` equal the slot-order ``ref`` bitwise
+on every tile whose run is at most ``_build.CHUNK_BLOCKS`` blocks; a longer
+run is summed in a fixed two-level order (per-chunk partials in slot order,
+then the chunks in order, ``ref.ec_rows_chunked``), deterministically.
+``blocked`` and ``fused`` give the same bits everywhere.
 
 Selection precedence: explicit ``variant=`` argument > ``AMPED_EC_VARIANT``
 environment variable > default (``blocked``). ``use_kernel=False`` forces

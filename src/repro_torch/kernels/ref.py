@@ -17,9 +17,9 @@ the reference's ``segment_sum`` (held by the tests). On a CUDA tensor
 sums in index order.
 
 :func:`ec_rows_chunked` computes the same function in the fixed two-level
-order of the ``sorted`` and ``fused`` CUDA kernels: a tile's run of at most
-``chunk_blocks`` blocks in slot order (the same bits as slot order), a
-longer run as per-chunk partials in slot order, then added in chunk order.
+order of the CUDA kernels: a tile's run of at most ``chunk_blocks`` blocks
+in slot order (the same bits as slot order), a longer run as per-chunk
+partials in slot order, then added in chunk order.
 """
 from __future__ import annotations
 
@@ -57,10 +57,10 @@ def ec_rows_chunked(values: torch.Tensor,
                     local_rows: torch.Tensor, num_rows: int,
                     block_to_tile: torch.Tensor, *, tile: int, block_p: int,
                     chunk_blocks: int) -> torch.Tensor:
-    """:func:`ec_rows_ref` in the two-level order of the ``sorted`` and
-    ``fused`` kernels. Runs are maximal stretches of consecutive blocks with
-    equal ``block_to_tile`` (each slot's row lies in its block's tile). A run
-    of at most ``chunk_blocks`` blocks goes through ``index_add_`` in slot
+    """:func:`ec_rows_ref` in the two-level order of the CUDA kernels.
+    Runs are maximal stretches of consecutive blocks with equal
+    ``block_to_tile`` (each slot's row lies in its block's tile). A run of
+    at most ``chunk_blocks`` blocks goes through ``index_add_`` in slot
     order, as in :func:`ec_rows_ref`. A longer run is cut into chunks of
     ``chunk_blocks`` blocks (the last may be shorter): each chunk's slots go
     in slot order into a ``(tile, R)`` partial, and the partials go into the

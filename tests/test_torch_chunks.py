@@ -1,4 +1,4 @@
-"""Work items and the two-level order of the ``sorted`` and ``fused`` EC.
+"""Work items and the two-level order of the port's EC kernels.
 
 A tile's run of more than ``CHUNK_BLOCKS`` kernel blocks is cut into work
 items; the CUDA kernels sum each item in slot order and the items' partials
@@ -11,8 +11,10 @@ on shards with such runs:
 * within rtol 1e-5 / atol 1e-5·max|ref| of the reference's slot-order
   ``ref`` and of its ``ec_sorted`` Pallas kernel in interpret mode: rows of
   a few hundred f32 terms summed in another grouping differ in the last
-  bits only;
-* the same bits for every ``num_buffers``.
+  bits only; ``blocked`` also within 2e-4 of the reference's ``ec_blocked``
+  (its one-hot product's own tolerance, test_torch_kernels.py);
+* the same bits for every ``num_buffers``, and for ``sorted``, ``fused``
+  and ``blocked`` alike.
 """
 import os
 
@@ -31,6 +33,7 @@ from repro_torch.kernels.ref import ec_rows_chunked, ec_rows_ref  # noqa: E402
 
 C = _build.CHUNK_BLOCKS
 TOL = 1e-5
+BLOCKED_TOL = 2e-4
 
 
 # -- tile_chunks --------------------------------------------------------------
@@ -173,7 +176,7 @@ def _jax(a, part, factors, variant, mode):
         seg_rows=jnp.asarray(a["seg_rows"])))
 
 
-@pytest.mark.parametrize("variant", ["sorted", "fused"])
+@pytest.mark.parametrize("variant", ["sorted", "fused", "blocked"])
 @pytest.mark.parametrize("case", sorted(LONG_RUN))
 def test_chunked_plain_equals_numpy_two_level(case, variant):
     part, factors, mode, dev = LONG_RUN[case]()
@@ -184,7 +187,7 @@ def test_chunked_plain_equals_numpy_two_level(case, variant):
                                                         part))
 
 
-@pytest.mark.parametrize("variant", ["sorted", "fused"])
+@pytest.mark.parametrize("variant", ["sorted", "fused", "blocked"])
 @pytest.mark.parametrize("case", sorted(LONG_RUN))
 def test_chunked_plain_near_reference(case, variant):
     """Against the reference's slot-order ``ref`` and its ``ec_sorted``
@@ -196,6 +199,17 @@ def test_chunked_plain_near_reference(case, variant):
         want = _jax(a, part, factors, ref_variant, mode)
         scale = float(np.abs(want).max())
         np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL * scale)
+
+
+@pytest.mark.parametrize("case", sorted(LONG_RUN))
+def test_blocked_plain_near_jax_blocked(case):
+    """Against the reference's ``ec_blocked`` (interpret mode) on the same
+    pre-gathered rows, at its own 2e-4."""
+    part, factors, mode, dev = LONG_RUN[case]()
+    a = shard_arrays(part, dev)
+    np.testing.assert_allclose(_port(a, part, factors, "blocked", mode),
+                               _jax(a, part, factors, "blocked", mode),
+                               rtol=BLOCKED_TOL, atol=BLOCKED_TOL)
 
 
 @pytest.mark.parametrize("variant", ["sorted", "fused"])
@@ -215,6 +229,16 @@ def test_sorted_and_fused_plain_agree_bitwise(case):
     part, factors, mode, dev = LONG_RUN[case]()
     a = shard_arrays(part, dev)
     np.testing.assert_array_equal(_port(a, part, factors, "sorted", mode),
+                                  _port(a, part, factors, "fused", mode))
+
+
+@pytest.mark.parametrize("case", sorted(LONG_RUN))
+def test_blocked_and_fused_plain_agree_bitwise(case):
+    """One kernel body, one order: the rows gathered before the kernel or
+    inside it are the same f32 values."""
+    part, factors, mode, dev = LONG_RUN[case]()
+    a = shard_arrays(part, dev)
+    np.testing.assert_array_equal(_port(a, part, factors, "blocked", mode),
                                   _port(a, part, factors, "fused", mode))
 
 

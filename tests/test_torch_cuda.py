@@ -1,9 +1,8 @@
 """The port's CUDA kernels on the card, held against their plain PyTorch
 versions on the CPU, bitwise: the same f32 products, the same per-row order
-of additions (slot order, and for ``sorted``/``fused`` on a tile's run of
-more than ``CHUNK_BLOCKS`` blocks the fixed two-level order, which the
-plain versions follow too; on the card they do so under
-``torch.use_deterministic_algorithms(True)``).
+of additions (slot order, and on a tile's run of more than ``CHUNK_BLOCKS``
+blocks the fixed two-level order, which the plain versions follow too; on
+the card they do so under ``torch.use_deterministic_algorithms(True)``).
 
 Marked ``gpu``: skipped where no card is present, which the fixture below
 decides at run time. Run on a GPU machine with
@@ -21,7 +20,8 @@ from _torch_cases import (BLOCKED_PROPERTY, BLOCKED_SHAPES,  # noqa: E402
 import repro_torch.api as api  # noqa: E402
 from repro_torch.core.coo import random_sparse  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
-from repro_torch.kernels.mttkrp_blocked import ec_blocked  # noqa: E402
+from repro_torch.kernels.mttkrp_blocked import (RING_DEPTH,  # noqa: E402
+                                                ec_blocked)
 
 pytestmark = pytest.mark.gpu
 
@@ -41,9 +41,11 @@ def _ec(part, factors, variant, device, dev=0, mode=1, num_buffers=2,
     t = {k: torch.from_numpy(v).to(device) for k, v in a.items()}
     facs = [torch.from_numpy(f).to(device) for f in factors]
     if plain:
-        from repro_torch.kernels import mttkrp_fused, mttkrp_sorted
+        from repro_torch.kernels import (mttkrp_blocked, mttkrp_fused,
+                                         mttkrp_sorted)
         fn = {"sorted": mttkrp_sorted.ec_sorted_plain,
-              "fused": mttkrp_fused.ec_fused_plain}[variant]
+              "fused": mttkrp_fused.ec_fused_plain,
+              "blocked": mttkrp_blocked.ec_blocked_plain}[variant]
         args = ops.kernel_args(variant, t["indices"], t["values"],
                                t["local_rows"], t["block_to_tile"], facs,
                                mode=mode, tile=part.tile,
@@ -94,8 +96,10 @@ def test_kernel_degenerate_shards(cuda, variant, case):
                                 mode=mode)
 
 
-@pytest.mark.parametrize("num_buffers", [2, 3, 4])
-@pytest.mark.parametrize("variant", ["sorted", "fused"])
+# blocked runs at its wrapper's fixed ring depth
+@pytest.mark.parametrize("variant,num_buffers", [
+    ("sorted", 2), ("sorted", 3), ("sorted", 4), ("fused", 2), ("fused", 3),
+    ("fused", 4), ("blocked", RING_DEPTH)])
 @pytest.mark.parametrize("case", sorted(LONG_RUN))
 def test_kernel_long_runs(cuda, case, variant, num_buffers):
     """Runs of more than CHUNK_BLOCKS blocks, split into work items and
@@ -113,7 +117,7 @@ def test_kernel_long_runs(cuda, case, variant, num_buffers):
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("variant", ["sorted", "fused"])
+@pytest.mark.parametrize("variant", ["sorted", "fused", "blocked"])
 def test_kernel_two_launches_same_bits(cuda, variant):
     part, factors, mode, dev = LONG_RUN["hot_row_4mode"]()
     a = _ec(part, factors, variant, cuda, dev=dev, mode=mode)
@@ -121,7 +125,7 @@ def test_kernel_two_launches_same_bits(cuda, variant):
     assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("variant", ["sorted", "fused"])
+@pytest.mark.parametrize("variant", ["sorted", "fused", "blocked"])
 @pytest.mark.parametrize("nmodes,rank,num_buffers", [
     (2, 4, 2), (3, 6, 3), (4, 64, 4), (5, 64, 4), (5, 128, 2)])
 def test_smem_model_is_what_the_kernel_lays_out(cuda, variant, nmodes, rank,
@@ -129,15 +133,17 @@ def test_smem_model_is_what_the_kernel_lays_out(cuda, variant, nmodes, rank,
     """The C entry point refuses a launch whose shared memory differs from
     its own layout, so a launch at the modelled bytes that runs and matches
     the plain version shows the model exact; a rank not a multiple of 4
-    takes the 4-byte copies."""
+    takes the 4-byte copies. (``blocked`` runs at its fixed ring depth.)"""
     part, factors = partitioned_case(nmodes, rank, seed=rank + nmodes)
     _assert_kernel_equals_plain(part, factors, variant, cuda,
                                 num_buffers=num_buffers)
 
 
-@pytest.mark.parametrize("variant", ["sorted", "fused"])
+@pytest.mark.parametrize("variant", ["sorted", "fused", "blocked"])
 def test_oversized_item_kernel_raises_before_launch(cuda, variant):
-    part, factors = partitioned_case(5, 128, seed=3, tile=32)
+    # blocked's ring is 2 stages deep, so it needs a larger tile to overflow
+    tile = 64 if variant == "blocked" else 32
+    part, factors = partitioned_case(5, 128, seed=3, tile=tile)
     before = dict(_build.LAUNCHES)
     with pytest.raises(ValueError, match="shared memory"):
         _ec(part, factors, variant, cuda, num_buffers=4)
@@ -161,6 +167,25 @@ def test_item_launch_rejects_a_wrong_smem_size(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA launch failed"):
         mttkrp_fused.ec_fused(*args, num_rows=part.rows_max, tile=part.tile,
                               block_p=part.block_p)
+
+
+def test_blocked_launch_rejects_a_wrong_smem_size(cuda, monkeypatch):
+    """The same refusal at ec_blocked's C entry point."""
+    part, factors = partitioned_case(3, 8, seed=1)
+    a = {k: torch.from_numpy(v).to(cuda)
+         for k, v in shard_arrays(part).items()}
+    facs = [torch.from_numpy(f).to(cuda) for f in factors]
+    args = ops.kernel_args("blocked", a["indices"], a["values"],
+                           a["local_rows"], a["block_to_tile"], facs, mode=1,
+                           tile=part.tile)
+    real = _build.variant_smem_bytes
+    monkeypatch.setattr(_build, "variant_smem_bytes",
+                        lambda *x, **k: real(*x, **k) + 16)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        ec_blocked(*args, num_rows=part.rows_max, tile=part.tile,
+                   block_p=part.block_p)
+    assert _build.LAUNCHES == before
 
 
 @pytest.mark.parametrize("variant", ["sorted", "fused", "blocked"])

@@ -3,11 +3,13 @@ tensor runs) against the reference's Pallas kernels in interpret mode, on
 the reference tests' own grids; plus the variant dispatch.
 
 Tolerances: ``sorted`` and ``ref`` are bitwise — both packages add the same
-f32 products in slot order. (The port's ``sorted`` and ``fused`` keep slot
+f32 products in slot order. (All three of the port's kernels keep slot
 order within a tile's run of at most ``CHUNK_BLOCKS`` blocks, which every
-run of these grids is; longer runs are tests/test_torch_chunks.py's.) ``fused`` and ``blocked`` are held to 2e-4 (2e-2
-for bf16 rows), the reference's own tolerance for them: its one-hot matrix
-product accumulates in another order than slot order.
+run of these grids is; longer runs are tests/test_torch_chunks.py's.)
+``fused`` and ``blocked`` are held to the JAX kernels at 2e-4 (2e-2 for
+bf16 rows), the reference's own tolerance for them: its one-hot matrix
+product accumulates in another order than slot order. The port's
+``blocked`` and ``fused`` sum in one order and give the same bits.
 """
 import os
 import subprocess
@@ -28,7 +30,8 @@ from repro.kernels import ops as j_ops  # noqa: E402
 from repro.kernels.mttkrp_pallas import ec_blocked as j_ec_blocked  # noqa: E402
 from repro.kernels.ref import ec_rows_ref as j_ec_rows_ref  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
-from repro_torch.kernels.mttkrp_blocked import ec_blocked  # noqa: E402
+from repro_torch.kernels.mttkrp_blocked import (RING_DEPTH,  # noqa: E402
+                                                ec_blocked)
 from repro_torch.kernels.ref import ec_rows_ref, mttkrp_dense_ref  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -296,10 +299,9 @@ def test_kernel_kwargs_and_autotune(monkeypatch):
 
 
 def test_smem_model_and_limit():
-    kw = dict(tile=8, block_p=128, rank=32)
+    kw = dict(tile=8, rank=32)
     assert ops.variant_smem_bytes("ref", **kw) == 0
-    assert ops.variant_smem_bytes("blocked", **kw) == (128 + 8) * 32 * 4 + 512
-    # sorted / fused: 4 warps, each a ring of 2 stages of 8 slots of 2 rows,
+    # every kernel: 4 warps, each a ring of 2 stages of 8 slots of 2 rows,
     # the stages' values, the metadata (2 blocks of 2*8+3 descriptor words,
     # or 2 stages of 8 rows in tile, 16-byte rounded) and the tile
     ring = dict(nin=2, num_buffers=2)
@@ -307,14 +309,18 @@ def test_smem_model_and_limit():
         4 * 4 * (2 * 8 * 2 * 32 + 16 + 40 + 8 * 32)
     assert ops.variant_smem_bytes("fused", **kw, **ring) == \
         4 * 4 * (2 * 8 * 2 * 32 + 16 + 16 + 8 * 32)
-    # block_p does not enter; every case of the tested range fits
-    for variant in ("sorted", "fused"):
-        assert ops.variant_smem_bytes(variant, tile=8, block_p=1024, rank=64,
-                                      nin=4, num_buffers=4) == \
-            ops.variant_smem_bytes(variant, tile=8, block_p=16, rank=64,
-                                   nin=4, num_buffers=4) < ops.SMEM_LIMIT
-        assert ops.variant_smem_bytes(variant, tile=32, block_p=128,
-                                      rank=128, nin=4,
+    # blocked lays out fused's region: its ring holds the pre-gathered rows
+    # in f32 and it stages no index word
+    assert ops.variant_smem_bytes("blocked", **kw, **ring) == \
+        ops.variant_smem_bytes("fused", **kw, **ring)
+    assert ops.variant_smem_bytes("blocked", tile=8, rank=32, nin=3,
+                                  num_buffers=RING_DEPTH) == \
+        4 * 4 * (RING_DEPTH * 8 * (3 * 32 + 2) + 8 * 32)
+    # every case of the tested range fits
+    for variant in ("sorted", "fused", "blocked"):
+        assert ops.variant_smem_bytes(variant, tile=8, rank=64, nin=4,
+                                      num_buffers=4) < ops.SMEM_LIMIT
+        assert ops.variant_smem_bytes(variant, tile=32, rank=128, nin=4,
                                       num_buffers=4) > ops.SMEM_LIMIT
         with pytest.raises(ValueError, match="nin and num_buffers"):
             ops.variant_smem_bytes(variant, **kw)
@@ -322,6 +328,9 @@ def test_smem_model_and_limit():
     with pytest.raises(ValueError, match="shared memory"):
         _build.item_buffers("sorted", b2t, num_rows=32, tile=32, rank=128,
                             nin=4, num_buffers=4)
+    with pytest.raises(ValueError, match="shared memory"):
+        _build.item_buffers("blocked", b2t, num_rows=64, tile=64, rank=128,
+                            nin=4, num_buffers=RING_DEPTH)
     with pytest.raises(ValueError, match="R <= 128"):
         _build.item_buffers("fused", b2t, num_rows=8, tile=8, rank=256,
                             nin=1, num_buffers=2)

@@ -93,8 +93,7 @@ def test_profile_tensor_and_plan_bitwise(name, scale):
 ])
 def test_validate_plan_tile_runs(b2t, ok):
     """Every tile a device visits is one run of consecutive blocks: the EC
-    kernels give each run to one CUDA block that writes its tile without
-    atomics."""
+    kernels write each run's tile once, without atomics."""
     tt = t_coo.random_sparse((40, 30, 20), 700, seed=3, distribution="zipf")
     plan = t_part.build_plan(tt, 1, tile=8, block_p=32, layout="sorted")
     part = dataclasses.replace(
