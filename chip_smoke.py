@@ -44,11 +44,31 @@ Phases, each of which exits non-zero on failure:
    after; fits must be finite and non-decreasing, ``blocked``'s must equal
    ``fused``'s, and both must agree with ``sorted``'s to 1e-4 (``sorted``
    regroups the hot rows' sums otherwise than the one-hot variants).
-6. Summary: one JSON line ``{"kernels": [...]}`` (``ms``, ``plain_ms`` and
+6. Multi-device path: the same tensor planned for 4 devices with the
+   ``sorted`` preset (prints the ``r`` its auto replication picks, and
+   plans again at r = 2 when that is 1, so that the merge runs), each plan
+   compiled on ``cp_mesh(4, r, devices=["cuda:0"] * 4)``: four logical
+   devices on ONE card, whose exchange is device-to-device copies in one
+   card's memory, not NVLink. (``--cards 4`` puts logical device k on
+   ``cuda:k`` instead, on a machine with four cards.) 3 sweeps with the
+   default exchange (``ring``, fp32), then 2 each with ``allgather``,
+   ``overlap`` and ``overlap`` on a bf16 wire, and 2 each of ``fused``
+   and ``blocked``. Counts are set to 0 just before each run and read
+   just after: the kernel must have launched once per mode, device and
+   sweep; fits finite, non-decreasing and within 1e-4 of the one-device
+   run (bf16: within 0.08 of fp32); every replica bitwise equal; the fp32
+   gathers' factors bitwise equal to ``ring``'s; ``blocked``'s fits equal
+   to ``fused``'s; the bytes that each logical device sent equal to
+   ``modelled_exchange_bytes``. Device 0's shard of mode 0 must give
+   ``ec_sorted``'s plain bits on the card. Per run it prints the steady
+   sweep time, per mode the EC and the exchange (merge + gather) ms from
+   CUDA events, the peak allocation and the plan seconds.
+7. Summary: one JSON line ``{"kernels": [...]}`` (``ms``, ``plain_ms`` and
    ``bound_ms`` summed over the three modes, i.e. one sweep's launches;
-   ``launches`` from the main-path run), the card's name and power
-   limit, and last ``{"ok": true, "device": {...}}``. With ``--out PATH``
-   every per-mode number also goes to a JSON file.
+   ``launches`` from the main-path run, ``multi_device_launches`` from the
+   multi-device path's), the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``. With ``--out PATH`` every per-mode
+   number also goes to a JSON file.
 """
 from __future__ import annotations
 
@@ -66,6 +86,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
+NVLINK_BYTES_PER_S = 450e9  # H100 SXM NVLink, each way per card
 RTOL = 1e-5
 REF_RTOL = 1e-4  # kernel vs the slot-order ref: long runs are regrouped
 SWEEPS = 5
@@ -224,11 +245,13 @@ def parity(plan, rank: int, *, timed: bool, bitwise_mode: int | None,
     import torch
     from repro_torch.core import als, mttkrp
     from repro_torch.kernels import ops
-    factors = als.init_factors(plan, rank, seed=1, device="cuda")
+    mesh = mttkrp.cp_mesh(1, 1, devices=["cuda"])
+    factors = [f[0] for f in als.init_factors(plan, rank, seed=1,
+                                              devices=mesh.devices)]
     recs = {k: [] for k in KERNELS}
     for mode, part in enumerate(plan.modes):
         outs = {}
-        dev = mttkrp.shard_plan_mode(part, "cuda")
+        dev = mttkrp.shard_plan_mode(part, mesh)[0]
         cases = kernel_cases(dev, part, factors, mode)
         # the semantic oracle: slot-order ref, deterministic on the card
         with slot_order():
@@ -353,10 +376,267 @@ def run_solver(api, plan, cfg, sweeps: int, label: str):
     return fits, counts, wall
 
 
+MD_DEVICES = 4
+MD_SWEEPS = 3       # the default exchange (ring, fp32)
+MD_AB_SWEEPS = 2    # each other exchange
+MD_KERNEL_SWEEPS = 2  # ec_fused and ec_blocked on the same plan
+BF16_FIT_TOL = 0.08  # the reference's own bf16-vs-fp32 bound
+EXCHANGES = {
+    "ring": {"exchange.variant": "ring"},
+    "allgather": {"exchange.variant": "allgather"},
+    "overlap": {"exchange.variant": "overlap"},
+    "overlap_bf16": {"exchange.variant": "overlap",
+                     "exchange.wire_dtype": "bfloat16"},
+}
+
+
+def sync_all() -> None:
+    import torch
+    for k in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(k)
+
+
+def time_host_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median host-clock ms of ``fn`` with every card synchronised before
+    and after: work spread over several cards has no one stream whose
+    events bracket it."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        sync_all()
+        t0 = time.perf_counter()
+        fn()
+        sync_all()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return float(np.median(times))
+
+
+def stage_ms(solver) -> list[dict]:
+    """Per mode, on the solver's current factors: the EC of every logical
+    device (``MTTKRPFn.local``) and the merge plus gather
+    (``MTTKRPFn.exchange``), each timed with CUDA events on one card, with
+    the host clock across cards."""
+    one_card = len({d.index for d in solver.mesh.devices}) == 1
+    timer = time_ms if one_card else time_host_ms
+    out = []
+    for d, upd in enumerate(solver.updates):
+        fn, dev = upd.mttkrp_fn, solver.dev_arrays[d]
+        factors = solver.state.factors
+        partials = fn.local(dev, factors)
+        out.append({"ec_ms": timer(lambda: fn.local(dev, factors), reps=10),
+                    "exchange_ms": timer(lambda: fn.exchange(partials),
+                                         reps=10)})
+    return out
+
+
+def multi_device_run(api, plan, cfg, mesh, sweeps: int, label: str, *,
+                     variant: str = "sorted") -> dict:
+    """One 4-logical-device run: counts set to 0 just before it, read just
+    after; checks launches, fits, replicas and the counted exchange bytes;
+    then times the stages."""
+    import torch
+    from repro_torch import comm
+    from repro_torch.kernels import _build
+    cards = sorted({d.index for d in mesh.devices})
+    torch.cuda.empty_cache()
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    solver = api.compile(plan, cfg, mesh=mesh)
+    sync_all()
+    _build.reset_launch_counts()
+    comm.reset_sent_bytes()
+    wall, snap = [], {}
+    for k in range(1, sweeps + 1):  # run() resumes: one more sweep each
+        t0 = time.perf_counter()
+        res = solver.run(k)
+        sync_all()
+        wall.append(time.perf_counter() - t0)
+        if k == MD_AB_SWEEPS:
+            snap = {"factors": res.factors, "fits": list(res.fits)}
+    counts = dict(_build.LAUNCHES)
+    sent = [s["total_bytes"] for s in comm.sent_bytes(mesh.num_devices)]
+    peak = max(torch.cuda.max_memory_allocated(c) for c in cards)
+    fits = np.asarray(res.fits)
+    name = f"ec_{variant}"
+    want = plan.nmodes * mesh.num_devices * sweeps
+    if counts[name] != want:
+        fail(f"{label}: {name} launched {counts[name]} times, expected "
+             f"{plan.nmodes} modes x {mesh.num_devices} devices x {sweeps} "
+             f"sweeps = {want}")
+    if fits.shape != (sweeps,) or not np.isfinite(fits).all():
+        fail(f"{label}: fits {fits} are not {sweeps} finite values")
+    if (np.diff(fits) < -FIT_TOL).any():
+        fail(f"{label}: fits decrease: {fits}")
+    st = solver.state
+    for reps in st.factors + st.grams + [st.lam, st.replica_fits]:
+        if not all(torch.equal(reps[0], x.to(reps[0].device))
+                   for x in reps[1:]):
+            fail(f"{label}: the replicas hold different bits")
+    spec = solver.exchange_spec
+    modelled = comm.modelled_exchange_bytes(plan, cfg.rank,
+                                            wire_dtype=spec.wire_dtype)
+    if sent != [modelled["sweep_total_bytes"] * sweeps] * mesh.num_devices:
+        fail(f"{label}: the logical devices sent {sent} B, the model says "
+             f"{modelled['sweep_total_bytes']} B x {sweeps} sweeps each")
+    stages = stage_ms(solver)
+    bounds = [exchange_bound_ms(mesh, m["total_bytes"])
+              for m in modelled["per_mode"]]
+    rec = {"label": label, "variant": variant, "r": mesh.r,
+           "exchange": {"variant": spec.variant, "merge": spec.merge,
+                        "chunk_rows": spec.chunk_rows,
+                        "wire_dtype": spec.wire_dtype},
+           "fits": fits.tolist(), "sweep_wall_s": wall,
+           "steady_sweep_s": float(np.median(wall[1:] or wall)),
+           "launches": counts[name], "sent_bytes_per_device": sent,
+           "modelled_bytes_per_sweep": modelled["sweep_total_bytes"],
+           "modelled_per_mode": modelled["per_mode"],
+           "stages_per_mode": stages, "exchange_bound_ms": bounds,
+           "ec_ms_sum": sum(x["ec_ms"] for x in stages),
+           "exchange_ms_sum": sum(x["exchange_ms"] for x in stages),
+           "peak_alloc_bytes": peak}
+    print(f"{label}: r={mesh.r} {spec.variant}/{spec.merge} wire="
+          f"{spec.wire_dtype}: sweep wall times "
+          f"{[round(w, 4) for w in wall]} s (steady "
+          f"{rec['steady_sweep_s']:.4f} s); fits "
+          f"{[round(float(f), 6) for f in fits]}; {name} launches "
+          f"{counts[name]}; each device sent {sent} B = "
+          f"model {modelled['sweep_total_bytes']} B x {sweeps}; per mode "
+          f"EC ms {[round(x['ec_ms'], 3) for x in stages]}, exchange ms "
+          f"{[round(x['exchange_ms'], 3) for x in stages]}, its bound "
+          f"{[round(b, 3) for b in bounds]} ({where(mesh)}); peak alloc "
+          f"per card {peak / 2**30:.2f} GiB", flush=True)
+    del solver
+    torch.cuda.empty_cache()
+    return rec, snap
+
+
+def exchange_bound_ms(mesh, sent_per_device: int) -> float:
+    """The least time of one mode's exchange: on one card every byte sent
+    is read and written once in its memory; across cards each card sends
+    its bytes over its own NVLink at once."""
+    if len({d.index for d in mesh.devices}) == 1:
+        return (1e3 * 2 * sent_per_device * mesh.num_devices
+                / HBM_BYTES_PER_S)
+    return 1e3 * sent_per_device / NVLINK_BYTES_PER_S
+
+
+def where(mesh) -> str:
+    """Where the mesh's logical devices lie, and so what its copies are."""
+    cards = sorted({d.index for d in mesh.devices})
+    if len(cards) == 1:
+        return (f"{mesh.num_devices} logical devices on one card: "
+                f"device-to-device copies, not NVLink")
+    return (f"{mesh.num_devices} logical devices on {len(cards)} cards: "
+            f"peer copies between cards")
+
+
+def multi_device(api, tensor, cfg, one_dev_fits, cards: int) -> dict:
+    """The multi-device path: the same tensor planned for 4 devices (the
+    ``sorted`` preset's auto replication, and r = 2 besides when that picks
+    r = 1), each plan run on 4 logical devices (logical device k on
+    ``cuda:0`` or, with 4 cards, on ``cuda:k``) with every exchange
+    schedule, and ``ec_fused``/``ec_blocked`` for two sweeps."""
+    import torch
+    from repro_torch.core import als, mttkrp
+    from repro_torch.kernels import mttkrp_sorted
+    mcfg = cfg.with_overrides({"runtime.num_devices": MD_DEVICES,
+                               "partition.replication": None})
+    t0 = time.perf_counter()
+    mplan = api.plan(tensor, mcfg)
+    plans = [(mcfg, mplan, time.perf_counter() - t0)]
+    r_auto = mplan.modes[0].r
+    print(f"auto replication for {MD_DEVICES} devices picked r={r_auto} "
+          f"(plan {plans[0][2]:.1f} s)", flush=True)
+    if r_auto == 1:
+        rcfg = mcfg.with_overrides({"partition.replication": 2})
+        t0 = time.perf_counter()
+        plans.append((rcfg, api.plan(tensor, rcfg),
+                      time.perf_counter() - t0))
+        print(f"planned again at r=2 so that the merge runs "
+              f"(plan {plans[1][2]:.1f} s)", flush=True)
+    out = {"r_auto": r_auto, "plans": []}
+    for pcfg, plan, plan_s in plans:
+        r = plan.modes[0].r
+        mesh = mttkrp.cp_mesh(MD_DEVICES, r, devices=[
+            f"cuda:{k % cards}" for k in range(MD_DEVICES)])
+        print(f"-- {where(mesh)} ({[str(d) for d in mesh.devices]}), "
+              f"(group, sub) = {mesh.shape}; rows_max per mode "
+              f"{[p.rows_max for p in plan.modes]}; nnz_max per shard "
+              f"{[p.nnz_max for p in plan.modes]}", flush=True)
+        # device 0's shard of mode 0: the kernel against its plain version
+        part = plan.modes[0]
+        dev0 = mttkrp.shard_plan_mode(part, mesh)[0]
+        f0 = [f[0] for f in als.init_factors(plan, pcfg.rank, seed=1,
+                                             devices=mesh.devices[:1])]
+        args, geo = kernel_cases(dev0, part, f0, 0)["ec_sorted"][2:4]
+        got = mttkrp_sorted.ec_sorted(*args, **geo)
+        with slot_order():
+            ref = mttkrp_sorted.ec_sorted_plain(*args, **geo)
+        if not torch.equal(got, ref):
+            fail(f"r={r}: ec_sorted on device 0's shard of mode 0 is not "
+                 f"bitwise equal to its deterministic plain version")
+        shard_err = float((got - ref).abs().max())
+        print(f"r={r}: ec_sorted on device 0's shard of mode 0 is bitwise "
+              f"equal to its plain version", flush=True)
+        del dev0, f0, args, got, ref
+        runs, snaps = {}, {}
+        for ename, ov in EXCHANGES.items():
+            sweeps = MD_SWEEPS if ename == "ring" else MD_AB_SWEEPS
+            rec, snap = multi_device_run(
+                api, plan, pcfg.with_overrides(ov), mesh, sweeps,
+                f"r={r} {ename}")
+            diff = np.abs(np.asarray(rec["fits"])
+                          - one_dev_fits[:sweeps]).max()
+            if ename == "overlap_bf16":
+                if np.abs(np.asarray(rec["fits"])
+                          - runs["ring"]["fits"][:sweeps]).max() \
+                        > BF16_FIT_TOL:
+                    fail(f"r={r} bf16 fits {rec['fits']} are more than "
+                         f"{BF16_FIT_TOL} from fp32's")
+            elif diff > FIT_TOL:
+                fail(f"r={r} {ename}: fits {rec['fits']} differ from the "
+                     f"one-device run's {one_dev_fits[:sweeps]} by "
+                     f"{diff:.2e}")
+            rec["max_abs_diff_one_device_fits"] = float(diff)
+            runs[ename], snaps[ename] = rec, snap
+        for ename in ("allgather", "overlap"):
+            if snaps[ename]["fits"] != snaps["ring"]["fits"] or not all(
+                    np.array_equal(a, b) for a, b in
+                    zip(snaps[ename]["factors"], snaps["ring"]["factors"])):
+                fail(f"r={r} {ename}: factors after {MD_AB_SWEEPS} sweeps "
+                     f"are not ring's bits")
+        for variant in ("fused", "blocked"):
+            vcfg = pcfg.with_overrides({"kernel.variant": variant})
+            rec, _ = multi_device_run(api, plan, vcfg, mesh,
+                                      MD_KERNEL_SWEEPS, f"r={r} {variant}",
+                                      variant=variant)
+            diff = np.abs(np.asarray(rec["fits"])
+                          - one_dev_fits[:MD_KERNEL_SWEEPS]).max()
+            if diff > FIT_TOL:
+                fail(f"r={r} {variant}: fits {rec['fits']} differ from the "
+                     f"one-device run's by {diff:.2e}")
+            rec["max_abs_diff_one_device_fits"] = float(diff)
+            runs[variant] = rec
+        if runs["blocked"]["fits"] != runs["fused"]["fits"]:
+            fail(f"r={r}: blocked fits {runs['blocked']['fits']} are not "
+                 f"fused's {runs['fused']['fits']}")
+        out["plans"].append({"r": r, "plan_s": plan_s,
+                             "rows_max": [p.rows_max for p in plan.modes],
+                             "nnz_max": [p.nnz_max for p in plan.modes],
+                             "shard0_max_abs_err": shard_err,
+                             "runs": runs})
+        del plan
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=3e-2,
                     help="amazon profile scale (3e-2: 20.2 M nonzeros)")
+    ap.add_argument("--cards", type=int, default=1, choices=(1, 4),
+                    help="cards the multi-device path's 4 logical devices "
+                         "lie on (default 1: all on cuda:0)")
     ap.add_argument("--out", default=None, metavar="PATH",
                     help="also write every per-mode number to this JSON "
                          "file")
@@ -422,8 +702,9 @@ def main() -> None:
            label="twitch(5-mode)")
 
     phase("main path")
-    from repro_torch.core.mttkrp import shard_plan_mode
-    shard_bytes = [shard_plan_mode(p, "cpu").nbytes() for p in plan.modes]
+    from repro_torch.core.mttkrp import cp_mesh, shard_plan_mode
+    cpu1 = cp_mesh(1, 1, devices=["cpu"])
+    shard_bytes = [shard_plan_mode(p, cpu1)[0].nbytes() for p in plan.modes]
     print(f"device bytes of the shards per mode: {shard_bytes}")
     torch.cuda.reset_peak_memory_stats()
     fits, counts, wall = run_solver(api, plan, cfg, SWEEPS, "sorted")
@@ -455,6 +736,13 @@ def main() -> None:
         fail(f"blocked fits {vfits_of['blocked']} are not fused's "
              f"{vfits_of['fused']}")
 
+    phase("multi-device path")
+    md = multi_device(api, tensor, cfg, fits, args.cards)
+    md_launches = {name: sum(run["launches"] for p in md["plans"]
+                             for run in p["runs"].values()
+                             if f"ec_{run['variant']}" == name)
+                   for name in KERNELS}
+
     phase("summary")
     kernels = []
     for name in KERNELS:
@@ -462,6 +750,8 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE[name],
             "replaces": REPLACES[name], "launches": launches[name],
+            # per-shard launches of the multi-device path (4 per mode)
+            "multi_device_launches": md_launches[name],
             "max_abs_err": max(x["max_abs_err"] for x in r),
             "ms": sum(x["ms"] for x in r),
             "plain_ms": sum(x["plain_ms"] for x in r),
@@ -487,7 +777,7 @@ def main() -> None:
               "sorted_fits": fits.tolist(),
               "ab_fits": {k: v.tolist() for k, v in vfits_of.items()},
               "sweep_wall_s": walls,
-              "per_mode": recs, "kernels": kernels}
+              "per_mode": recs, "multi_device": md, "kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -4,11 +4,15 @@
 
     cfg    = api.preset("sorted", {"kernel.autotune": False})
     plan   = api.plan(tensor, cfg)                  # host preprocessing
-    solver = api.compile(plan, cfg)                 # shards on the card
+    solver = api.compile(plan, cfg)                 # shards on the card(s)
     result = solver.run(iters=10)                   # CPResult
 
-``api.compile(plan, cfg, device="cpu")`` runs the same path on the CPU with
-the kernels' plain PyTorch versions.
+A plan for M devices (``runtime.num_devices``) compiles onto ``cuda:0 ..
+cuda:M-1``, or onto an explicit mesh:
+``api.compile(plan, cfg, mesh=cp_mesh(M, r, devices=["cuda:0"] * M))``
+(``repro_torch.core.mttkrp.cp_mesh``) puts the M logical devices on one
+card. ``api.compile(plan, cfg, device="cpu")`` runs the same path on the
+CPU with the kernels' plain PyTorch versions.
 """
 from repro_torch.api.config import (DecomposeConfig, ExchangeConfig,
                                     KernelConfig, PartitionConfig, PRESETS,

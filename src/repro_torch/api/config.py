@@ -5,8 +5,8 @@ sections, fields, defaults, presets and dotted overrides, so a config
 round-trips through JSON between the two packages. Sections the port does
 not run yet keep their fields; ``api.plan`` and ``api.compile`` raise
 ``NotImplementedError`` naming the ROADMAP item when a config asks for one
-of them (the rebalancer, streaming, checkpointing, tracing, more than one
-device, the autotuner).
+of them (the rebalancer, streaming, checkpointing, tracing, the
+autotuners).
 
 A :class:`DecomposeConfig` is a frozen composition of five orthogonal
 sub-configs, mirroring the stages of the AMPED pipeline:
@@ -18,7 +18,7 @@ sub-configs, mirroring the stages of the AMPED pipeline:
   * :class:`KernelConfig`    — which EC implementation executes the MTTKRP
     hot loop and its launch parameters.
   * :class:`ExchangeConfig`  — how partial factors move between devices
-    (the identity on one device).
+    (see :mod:`repro_torch.comm`; the identity on one device).
   * :class:`RuntimeConfig`   — device count, checkpoint directory,
     convergence tolerance, RNG seed.
 
@@ -35,6 +35,7 @@ import dataclasses
 import json
 from typing import Any, Mapping, Sequence
 
+from repro_torch.comm import collectives
 from repro_torch.core.partition import Strategy
 
 __all__ = [
@@ -55,10 +56,8 @@ __all__ = [
     "MERGE_VARIANTS",
 ]
 
-# The reference's exchange variant names (comm/collectives.py:64-65), kept so
-# that ExchangeConfig validates exactly as there.
-GATHER_VARIANTS = ("allgather", "ring", "overlap")
-MERGE_VARIANTS = ("psum_scatter", "ring_rs")
+GATHER_VARIANTS = collectives.GATHER_VARIANTS
+MERGE_VARIANTS = collectives.MERGE_VARIANTS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,8 +141,27 @@ class KernelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ExchangeConfig:
-    """Inter-device factor exchange (paper Algorithm 3). The identity on one
-    device; the fields are kept and validated so configs round-trip."""
+    """Inter-device factor exchange (paper Algorithm 3; see
+    :mod:`repro_torch.comm`).
+
+    ``variant`` selects the gather schedule with the same precedence as
+    kernel variants (explicit > ``AMPED_EXCHANGE_VARIANT`` env > the legacy
+    ``ring`` flag > default ``ring``):
+
+      * ``"allgather"`` — every device copies every other device's block.
+      * ``"ring"``      — the paper's explicit Algorithm-3 ring.
+      * ``"overlap"``   — the ring chunked by rows, chunk k+1's rounds
+        enqueued before chunk k's blocks are written (``chunk_rows`` sets
+        the chunk size, ``None`` a default split; ``autotune_chunk`` asks
+        for the chunk autotuner, which is not ported and raises).
+
+    ``merge`` selects the intra-group reduce for replication r>1
+    (``"psum_scatter"`` — a reduce-scatter summing in member order;
+    ``"ring_rs"`` — explicit ring reduce-scatter). ``wire_dtype="bfloat16"``
+    halves exchange volume by casting payloads to bf16 on the wire while
+    accumulating merges in fp32 (a bf16 wire always takes the ``ring_rs``
+    merge). The identity on one device.
+    """
 
     ring: bool = True               # legacy: True = ring, False = allgather
     variant: str | None = None      # "allgather"|"ring"|"overlap"|None = env
@@ -177,7 +195,7 @@ class RuntimeConfig:
     epoch-streaming execution and ``trace`` its span tracer; the port runs
     neither yet."""
 
-    num_devices: int | None = None  # None = 1 in the port
+    num_devices: int | None = None  # None = the visible cards (CPU: 1)
     checkpoint_dir: str | None = None
     tol: float = 1e-5               # |fit_k - fit_{k-1}| < tol stops the run
     seed: int = 0

@@ -1,9 +1,9 @@
-"""CP-ALS on top of the one-device MTTKRP (paper Algorithm 1 + §2.1.4).
+"""CP-ALS on top of the distributed MTTKRP (paper Algorithm 1 + §2.1.4).
 
 The counterpart of the reference package's ``core/als.py``. One ALS sweep
 updates every mode in sequence:
 
-    M_d   = MTTKRP(X_(d), {F_w}_{w≠d})
+    M_d   = MTTKRP(X_(d), {F_w}_{w≠d})          (distributed, the paper's core)
     V_d   = ⊛_{w≠d} (F_wᵀ F_w)                  (R×R Hadamard of grams)
     F_d   = M_d V_d⁺,  λ = colnorms(F_d),  F_d /= λ
 
@@ -14,10 +14,19 @@ materialised):
 
 Grams are cached across modes; only the updated mode's gram is recomputed.
 
+Replicated state, as in the reference: every logical device of the mesh
+holds its own replica of every padded factor, gram and ``lam`` (a list in
+linear device order), and the solve, the normalisation, the gram and the
+fit run once on each replica, as XLA runs a replicated computation on each
+device. The replicas stay bitwise identical because each one starts from
+the same bits and receives the same bits from the exchange (every block,
+the own one included, takes the same wire round trip).
+
 Nothing in a sweep reads a result on the host: the fit it appends is a 0-d
 device tensor, read only when the caller asks. (On CUDA,
-``torch.linalg.eigh`` synchronises once per mode for its own error check,
-so the host waits for each mode's EC before it enqueues that mode's solve.)
+``torch.linalg.eigh`` synchronises once per replica and mode for its own
+error check, so the host waits for each mode's MTTKRP before it enqueues
+that mode's solve.)
 
 Factor matrices live in the padded ownership layout of their mode (see
 core/partition.py); padding rows are zero and stay zero.
@@ -34,26 +43,30 @@ import torch
 from repro_torch.core import mttkrp as dmttkrp
 from repro_torch.core.partition import CPPlan
 
-__all__ = ["ALSState", "init_factors", "make_mode_update",
+__all__ = ["ALSState", "init_factors", "replicate", "make_mode_update",
            "make_sweep_updates", "als_sweep", "fit_from_stats",
            "unpad_factors"]
 
 
 @dataclasses.dataclass
 class ALSState:
-    factors: list[torch.Tensor]    # per mode, padded layout
-    lam: torch.Tensor              # (R,) column scales
-    grams: list[torch.Tensor]      # per mode, (R, R) = F_wᵀ F_w
+    factors: list[list[torch.Tensor]]  # [mode][device], padded layout
+    lam: list[torch.Tensor]            # [device], (R,) column scales
+    grams: list[list[torch.Tensor]]    # [mode][device], (R, R) = F_wᵀ F_w
     sweep: int = 0
-    # 0-d device tensors (or floats after a host read) — reading one blocks.
+    # Replica 0's fit per sweep: 0-d device tensors (or floats after a host
+    # read) — reading one blocks.
     fits: list = dataclasses.field(default_factory=list)
+    # Every replica's fit of the latest sweep (all hold the same bits).
+    replica_fits: list = dataclasses.field(default_factory=list)
 
 
 def init_factors(plan: CPPlan, rank: int, seed: int = 0, *,
-                 device) -> list[torch.Tensor]:
-    """Random factors in padded layout; padding rows exactly zero. The same
-    numpy draw as the reference (als.py:53-63), so both packages start from
-    the same factors."""
+                 devices) -> list[list[torch.Tensor]]:
+    """Random factors in padded layout, one replica on each of ``devices``
+    (a mesh's device list); padding rows exactly zero. The same numpy draw
+    as the reference (als.py:53-63), so both packages start from the same
+    factors. Replicas never share storage, even on one device."""
     rng = np.random.default_rng(seed)
     out = []
     for w in range(plan.nmodes):
@@ -61,8 +74,13 @@ def init_factors(plan: CPPlan, rank: int, seed: int = 0, *,
         f = np.zeros((rows, rank), np.float32)
         g2p = plan.global_to_padded[w]
         f[g2p] = rng.uniform(0.1, 1.0, size=(plan.shape[w], rank)).astype(np.float32)
-        out.append(torch.from_numpy(f).to(device))
+        out.append(replicate(f, devices))
     return out
+
+
+def replicate(x: np.ndarray, devices) -> list[torch.Tensor]:
+    """One copy of host array ``x`` on each of ``devices``."""
+    return [torch.tensor(x, device=d) for d in devices]
 
 
 def _pinv_psd(v: torch.Tensor, rcond: float = 1e-8) -> torch.Tensor:
@@ -73,49 +91,62 @@ def _pinv_psd(v: torch.Tensor, rcond: float = 1e-8) -> torch.Tensor:
     return (u * w_inv[None, :]) @ u.T
 
 
-def make_mode_update(plan: CPPlan, mode: int, **mttkrp_kw) -> Callable:
-    """``(F_d_old, dev_arrays, other_factors, grams) -> (F_d, G_d, M_d, lam)``.
+def _solve(m: torch.Tensor, f_old: torch.Tensor, grams, mode: int):
+    """One replica's ``F_d = M_d V_d⁺`` (written into ``f_old``), its
+    column norms ``lam`` (F_d is divided by them) and its gram."""
+    v = functools.reduce(
+        lambda a, b: a * b,
+        [g for w, g in enumerate(grams) if w != mode])    # (R, R)
+    f_new = torch.matmul(m, _pinv_psd(v), out=f_old)
+    lam = torch.linalg.vector_norm(f_new, dim=0)
+    lam = torch.where(lam > 0, lam, torch.ones_like(lam))
+    f_new.div_(lam[None, :])
+    return f_new, f_new.T @ f_new, lam
+
+
+def make_mode_update(plan: CPPlan, mode: int, mesh, **mttkrp_kw) -> Callable:
+    """``(F_d_old, dev_arrays, other_factors, grams) -> (F_d, G_d, M_d,
+    lam)``, every argument and result replicated (a per-device list).
 
     ``other_factors`` is the factor list *without* mode ``mode``; the old
     output-mode factor is passed separately because the update overwrites
     it in place: the reference donates that buffer to XLA (als.py:101), and
-    here ``F_d`` is written into ``F_d_old``'s storage, saving one
-    padded_d×R allocation per update. Do not read a factor of an
-    ``ALSState`` from before the sweep that replaced it.
+    here each replica of ``F_d`` is written into its ``F_d_old``'s storage,
+    saving one padded_d×R allocation per replica and update. Do not read a
+    factor of an ``ALSState`` from before the sweep that replaced it. The
+    returned update's ``mttkrp_fn`` is its
+    :class:`~repro_torch.core.mttkrp.MTTKRPFn`.
     """
-    mfn = dmttkrp.make_mttkrp_fn(plan.modes[mode], **mttkrp_kw)
-    n = plan.nmodes
+    mfn = dmttkrp.make_mttkrp_fn(plan.modes[mode], mesh, **mttkrp_kw)
 
-    def update(f_old: torch.Tensor, dev, other_factors: Sequence[torch.Tensor],
-               grams: Sequence[torch.Tensor]):
+    def update(f_old, dev, other_factors, grams):
         factors = list(other_factors[:mode]) + [f_old] + \
             list(other_factors[mode:])
-        m = mfn(dev, factors)                             # (padded_d, R)
-        v = functools.reduce(
-            lambda a, b: a * b,
-            [grams[w] for w in range(n) if w != mode])     # (R, R)
+        ms = mfn(dev, factors)                  # per device (padded_d, R)
         # the EC ignores the output mode's factor, so F_d_old is free now
-        f_new = torch.matmul(m, _pinv_psd(v), out=f_old)
-        lam = torch.linalg.vector_norm(f_new, dim=0)
-        lam = torch.where(lam > 0, lam, torch.ones_like(lam))
-        f_new.div_(lam[None, :])
-        g_new = f_new.T @ f_new
-        return f_new, g_new, m, lam
+        solved = [_solve(m, f_old[k], [g[k] for g in grams], mode)
+                  for k, m in enumerate(ms)]
+        f_new, g_new, lam = (list(x) for x in zip(*solved))
+        return f_new, g_new, ms, lam
 
+    update.mttkrp_fn = mfn
     return update
 
 
-def make_sweep_updates(plan: CPPlan, **mttkrp_kw) -> list[Callable]:
+def make_sweep_updates(plan: CPPlan, mesh, **mttkrp_kw) -> list[Callable]:
     """One :func:`make_mode_update` per mode, sharing ``mttkrp_kw`` (kernel
-    variant, num_buffers). Build once, pass to every :func:`als_sweep` —
-    this is what :class:`repro_torch.api.CPSolver` owns."""
-    return [make_mode_update(plan, d, **mttkrp_kw)
+    variant, num_buffers, ``exchange_spec`` — the
+    :class:`repro_torch.comm.ExchangeSpec` selecting gather/merge schedule,
+    overlap chunking and wire dtype — or the legacy ``ring`` flag). Build
+    once, pass to every :func:`als_sweep` — this is what
+    :class:`repro_torch.api.CPSolver` owns."""
+    return [make_mode_update(plan, d, mesh, **mttkrp_kw)
             for d in range(plan.nmodes)]
 
 
 def fit_from_stats(norm_x: float, m_last, f_last, lam, grams) -> torch.Tensor:
-    """fit = 1 - ||X - X̂||_F / ||X||_F via the norm identity; a 0-d tensor
-    on the factors' device."""
+    """fit = 1 - ||X - X̂||_F / ||X||_F via the norm identity, on one
+    replica; a 0-d tensor on its device."""
     inner = torch.sum(torch.sum(m_last * f_last, dim=0) * lam)
     gall = functools.reduce(lambda a, b: a * b, grams)
     model_sq = lam @ gall @ lam
@@ -123,7 +154,7 @@ def fit_from_stats(norm_x: float, m_last, f_last, lam, grams) -> torch.Tensor:
     return 1.0 - torch.sqrt(resid_sq) / norm_x
 
 
-def als_sweep(plan: CPPlan, dev_arrays: Sequence, state: ALSState,
+def als_sweep(plan: CPPlan, mesh, dev_arrays: Sequence, state: ALSState,
               updates: Sequence[Callable] | None = None,
               **mttkrp_kw) -> ALSState:
     """One full sweep over all modes (Algorithm 1). Multi-sweep callers
@@ -135,7 +166,7 @@ def als_sweep(plan: CPPlan, dev_arrays: Sequence, state: ALSState,
     :func:`make_mode_update`)."""
     n = plan.nmodes
     if updates is None:
-        updates = make_sweep_updates(plan, **mttkrp_kw)
+        updates = make_sweep_updates(plan, mesh, **mttkrp_kw)
     factors, grams = list(state.factors), list(state.grams)
     m_last = f_last = lam = None
     for d in range(n):
@@ -144,13 +175,17 @@ def als_sweep(plan: CPPlan, dev_arrays: Sequence, state: ALSState,
                                         grams)
         factors[d], grams[d] = f_d, g_d
         m_last, f_last = m_d, f_d
-    fit = fit_from_stats(plan.norm, m_last, f_last, lam, grams)
+    fits = [fit_from_stats(plan.norm, m_last[k], f_last[k], lam[k],
+                           [g[k] for g in grams])
+            for k in range(len(lam))]
     return ALSState(factors=factors, lam=lam, grams=grams,
-                    sweep=state.sweep + 1, fits=state.fits + [fit])
+                    sweep=state.sweep + 1, fits=state.fits + [fits[0]],
+                    replica_fits=fits)
 
 
-def unpad_factors(plan: CPPlan, factors: Sequence[torch.Tensor]
+def unpad_factors(plan: CPPlan, factors: Sequence[Sequence[torch.Tensor]]
                   ) -> list[np.ndarray]:
-    """Padded ownership layout → global row order (I_w, R), on the host."""
-    return [f.detach().cpu().numpy()[plan.global_to_padded[w]]
+    """Padded ownership layout → global row order (I_w, R), on the host,
+    from replica 0."""
+    return [f[0].detach().cpu().numpy()[plan.global_to_padded[w]]
             for w, f in enumerate(factors)]

@@ -37,7 +37,7 @@ __all__ = ["SOURCES", "SMEM_LIMIT", "MAX_NUM_BUFFERS", "LAUNCHES",
            "check_blocking", "require", "item_buffers",
            "tile_runs", "tile_chunks", "TileChunks", "CHUNK_BLOCKS",
            "STAGE_SLOTS", "ITEM_WARPS", "MAX_ITEM_RANK",
-           "variant_smem_bytes", "copy_width", "cuda_stream"]
+           "variant_smem_bytes", "copy_width", "launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -171,8 +171,18 @@ def copy_width(factors) -> int:
     return 4 if ok else 1
 
 
-def cuda_stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def launch(name: str, symbol: str, argtypes, device: torch.device,
+           *args) -> None:
+    """Call the C entry point ``symbol`` of source ``name`` with ``args``
+    and the current stream of ``device``, with ``device`` made the
+    thread's current device for the call (the entry point launches on the
+    current device, which need not be the tensors'); raise if the launch
+    failed, else count it in :data:`LAUNCHES`."""
+    fn = kernel_function(name, symbol, argtypes)
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(err, name, name)
+    LAUNCHES[name] += 1
 
 
 def check_blocking(nnz: int, *, num_rows: int, tile: int, block_p: int,

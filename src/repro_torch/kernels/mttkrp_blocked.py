@@ -123,15 +123,11 @@ def _launch(values, row_in_tile, block_to_tile, gathered_rows, *, num_rows,
     if nblocks == 0:
         return out
     gptrs = [g.data_ptr() for g in rows] + [0] * (4 - nin)
-    fn = _build.kernel_function("ec_blocked", "ec_blocked_launch", _ARGTYPES)
-    with torch.cuda.device(dev):
-        err = fn(values.data_ptr(), row_in_tile.data_ptr(),
-                 block_to_tile.data_ptr(), chunks.item_starts.data_ptr(),
-                 chunks.item_part.data_ptr(), chunks.split.data_ptr(),
-                 *gptrs, out.data_ptr(), partials.data_ptr(), nin, nblocks,
-                 chunks.split.shape[1], nblocks, block_p, tile, rank,
-                 num_buffers, _build.copy_width(rows), smem,
-                 _build.cuda_stream(dev))
-    _build.check(err, "ec_blocked", "ec_blocked")
-    _build.LAUNCHES["ec_blocked"] += 1
+    _build.launch("ec_blocked", "ec_blocked_launch", _ARGTYPES, dev,
+                  values.data_ptr(), row_in_tile.data_ptr(),
+                  block_to_tile.data_ptr(), chunks.item_starts.data_ptr(),
+                  chunks.item_part.data_ptr(), chunks.split.data_ptr(), *gptrs,
+                  out.data_ptr(), partials.data_ptr(), nin, nblocks,
+                  chunks.split.shape[1], nblocks, block_p, tile, rank,
+                  num_buffers, _build.copy_width(rows), smem)
     return out

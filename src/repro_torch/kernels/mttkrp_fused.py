@@ -140,15 +140,12 @@ def _launch(values, row_in_tile, block_to_tile, input_indices, factors, *,
     if nblocks == 0:
         return out
     fptrs = [f.data_ptr() for f in facs] + [0] * (4 - nin)
-    fn = _build.kernel_function("ec_fused", "ec_fused_launch", _ARGTYPES)
-    with torch.cuda.device(dev):
-        err = fn(values.data_ptr(), row_in_tile.data_ptr(),
-                 block_to_tile.data_ptr(), chunks.item_starts.data_ptr(),
-                 chunks.item_part.data_ptr(), chunks.split.data_ptr(),
-                 input_indices.data_ptr(), *fptrs, out.data_ptr(),
-                 partials.data_ptr(), nin, nblocks, chunks.split.shape[1],
-                 nblocks, block_p, tile, rank, num_buffers,
-                 _build.copy_width(facs), smem, _build.cuda_stream(dev))
-    _build.check(err, "ec_fused", "ec_fused")
-    _build.LAUNCHES["ec_fused"] += 1
+    _build.launch("ec_fused", "ec_fused_launch", _ARGTYPES, dev,
+                  values.data_ptr(), row_in_tile.data_ptr(),
+                  block_to_tile.data_ptr(), chunks.item_starts.data_ptr(),
+                  chunks.item_part.data_ptr(), chunks.split.data_ptr(),
+                  input_indices.data_ptr(), *fptrs, out.data_ptr(),
+                  partials.data_ptr(), nin, nblocks, chunks.split.shape[1],
+                  nblocks, block_p, tile, rank, num_buffers,
+                  _build.copy_width(facs), smem)
     return out

@@ -154,16 +154,12 @@ def _launch(values, seg_starts, seg_rows, block_to_tile, input_indices,
     if nblocks == 0:
         return out
     fptrs = [f.data_ptr() for f in facs] + [0] * (4 - nin)
-    fn = _build.kernel_function("ec_sorted", "ec_sorted_launch", _ARGTYPES)
-    with torch.cuda.device(dev):
-        err = fn(values.data_ptr(), seg_starts.data_ptr(),
-                 seg_rows.data_ptr(), block_to_tile.data_ptr(),
-                 chunks.item_starts.data_ptr(), chunks.item_part.data_ptr(),
-                 chunks.split.data_ptr(), input_indices.data_ptr(), *fptrs,
-                 out.data_ptr(), partials.data_ptr(), nin, nblocks,
-                 chunks.split.shape[1], nblocks, block_p, tile, rank,
-                 num_buffers, _build.copy_width(facs), smem,
-                 _build.cuda_stream(dev))
-    _build.check(err, "ec_sorted", "ec_sorted")
-    _build.LAUNCHES["ec_sorted"] += 1
+    _build.launch("ec_sorted", "ec_sorted_launch", _ARGTYPES, dev,
+                  values.data_ptr(), seg_starts.data_ptr(),
+                  seg_rows.data_ptr(), block_to_tile.data_ptr(),
+                  chunks.item_starts.data_ptr(), chunks.item_part.data_ptr(),
+                  chunks.split.data_ptr(), input_indices.data_ptr(), *fptrs,
+                  out.data_ptr(), partials.data_ptr(), nin, nblocks,
+                  chunks.split.shape[1], nblocks, block_p, tile, rank,
+                  num_buffers, _build.copy_width(facs), smem)
     return out

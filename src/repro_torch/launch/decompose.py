@@ -4,12 +4,18 @@
         --set kernel.autotune=false --profile amazon --scale 1e-3
     PYTHONPATH=src python -m repro_torch.launch.decompose --preset sorted \\
         --set kernel.autotune=false --scale 2e-5 --device cpu   # no card
+    PYTHONPATH=src python -m repro_torch.launch.decompose --profile twitch \\
+        --scale 2e-5 --device cpu --devices 4 --exchange-report
 
-Runs the staged repro_torch.api pipeline on one device — the card unless
-``--device cpu`` — and reports preprocessing (plan) time separately from
-compile (shard placement) and execution time, as the reference launcher
-does. The ``fused`` and ``sorted`` presets turn the autotuner on, which the
-port does not have yet: pass ``--set kernel.autotune=false``.
+Runs the staged repro_torch.api pipeline — on ``cuda:0 .. cuda:N-1`` (one
+logical device per card; fewer visible cards than ``--devices`` raises)
+unless ``--device cpu``, which runs the N logical devices on the CPU — and
+reports preprocessing (plan) time separately from compile (shard placement)
+and execution time, as the reference launcher does. ``--exchange-report``
+prints the modelled exchange bytes of one sweep and the bytes that each
+logical device counted. The
+``fused`` and ``sorted`` presets turn the autotuner on, which the port does
+not have yet: pass ``--set kernel.autotune=false``.
 """
 from __future__ import annotations
 
@@ -36,11 +42,15 @@ def main(argv=None):
     ap.add_argument("--scale", type=float, default=2e-4)
     ap.add_argument("--rank", type=int, default=32)
     ap.add_argument("--iters", type=int, default=5)
-    ap.add_argument("--devices", type=int, default=None, choices=(1,),
-                    help="device count (the port runs one device)")
+    ap.add_argument("--devices", type=int, default=None,
+                    help="logical device count (default: the visible cards;"
+                         " 1 with --device cpu)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the solve runs (cpu: the kernels' plain "
                          "PyTorch versions)")
+    ap.add_argument("--exchange-report", action="store_true",
+                    help="print modelled vs counted exchange bytes per "
+                         "sweep")
     args = ap.parse_args(argv)
 
     import repro_torch.api as api
@@ -63,11 +73,12 @@ def main(argv=None):
           f"policy={cfg.resolved_policy()} device={args.device}")
 
     t0 = time.perf_counter()
-    plan = api.plan(t, cfg)
+    plan = api.plan(t, cfg, device=args.device)
     t_plan = time.perf_counter() - t0
     part = plan.modes[0]
     print(f"geometry: tile={part.tile} block_p={part.block_p} "
-          f"layout={part.block_layout}")
+          f"layout={part.block_layout} devices={plan.num_devices} "
+          f"r={part.r}")
     solver = api.compile(plan, cfg, device=args.device)
     t_compile = time.perf_counter() - t0 - t_plan
     t1 = time.perf_counter()
@@ -77,6 +88,14 @@ def main(argv=None):
     print(f"plan {t_plan:.1f}s | compile {t_compile:.1f}s | "
           f"execute {t_exec:.1f}s")
     print(f"{res.sweeps} sweeps; final fit {res.fits[-1]:.5f}")
+    if args.exchange_report:
+        rep = solver.exchange_report()
+        spec = rep["spec"]
+        print(f"exchange {spec['variant']}/{spec['merge']} wire="
+              f"{spec['wire_dtype']}: modelled "
+              f"{rep['modelled']['sweep_total_bytes']} B/sweep/device, "
+              f"counted per device "
+              f"{rep['counted']['sweep_bytes_per_device']} B")
 
 
 if __name__ == "__main__":

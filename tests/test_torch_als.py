@@ -58,10 +58,11 @@ def _mttkrp_both(t, factors, use_kernel):
             jplan, mode, mesh, j_dm.shard_plan_mode(jplan.modes[mode], mesh),
             [jnp.asarray(f) for f in factors], use_kernel=use_kernel,
             ring=False)
+        tmesh = t_dm.cp_mesh(1, 1, devices=["cpu"])
         p = t_dm.distributed_mttkrp(
-            tplan, mode, t_dm.shard_plan_mode(tplan.modes[mode], "cpu"),
-            [torch.from_numpy(f) for f in factors], use_kernel=use_kernel)
-        out.append((np.asarray(j), p.numpy()))
+            tplan, mode, tmesh, t_dm.shard_plan_mode(tplan.modes[mode], tmesh),
+            [[torch.from_numpy(f)] for f in factors], use_kernel=use_kernel)
+        out.append((np.asarray(j), p[0].numpy()))
     return out, tplan
 
 
@@ -176,11 +177,11 @@ def test_sweep_is_async_and_updates_in_place(small_tensor):
     cfg = _cfgs(tapi, "sorted")
     solver = tapi.compile(tapi.plan(_port_tensor(small_tensor), cfg), cfg,
                           device="cpu")
-    before = [f.data_ptr() for f in solver.state.factors]
+    before = [f[0].data_ptr() for f in solver.state.factors]
     state = solver.sweep()
     assert isinstance(state.fits[-1], torch.Tensor)
     assert state.fits[-1].dim() == 0
-    assert [f.data_ptr() for f in state.factors] == before
+    assert [f[0].data_ptr() for f in state.factors] == before
 
 
 def test_exact_recovery():
@@ -211,7 +212,8 @@ def test_config_round_trips_between_packages():
 
 
 @pytest.mark.parametrize("overrides,item", [
-    ({"runtime.num_devices": 2}, "Multi-GPU exchange"),
+    ({"exchange.variant": "overlap", "exchange.autotune_chunk": True},
+     "Autotuner"),
     ({"kernel.autotune": True, "kernel.use_kernel": True}, "Autotuner"),
 ])
 def test_plan_rejects_unported(small_tensor, overrides, item):
@@ -254,6 +256,6 @@ def test_launcher_on_cpu(capsys):
 
 
 def test_launcher_has_no_unported_flags():
-    for argv in (["--devices", "2"], ["--store", "x"], ["--ckpt", "x"]):
+    for argv in (["--plan-cache", "x"], ["--store", "x"], ["--ckpt", "x"]):
         with pytest.raises(SystemExit):
             launcher.main(argv)

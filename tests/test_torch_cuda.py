@@ -18,6 +18,9 @@ from _torch_cases import (BLOCKED_PROPERTY, BLOCKED_SHAPES,  # noqa: E402
                           DEGENERATE_SORTED, LONG_RUN, blocked_case,
                           partitioned_case, shard_arrays)
 import repro_torch.api as api  # noqa: E402
+from repro_torch.comm import ExchangeSpec  # noqa: E402
+from repro_torch.core import mttkrp as dm  # noqa: E402
+from repro_torch.core.partition import build_plan  # noqa: E402
 from repro_torch.core.coo import random_sparse  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.mttkrp_blocked import (RING_DEPTH,  # noqa: E402
@@ -251,7 +254,7 @@ def test_als_on_card_matches_cpu(cuda, preset):
     to 1e-4 (the card's grams and solve sum in another order)."""
     t = random_sparse((40, 30, 20), 600, seed=7, distribution="zipf")
     cfg = api.preset(preset, {"rank": 8, "kernel.autotune": False,
-                              "runtime.tol": 0.0})
+                              "runtime.tol": 0.0, "runtime.num_devices": 1})
     plan = api.plan(t, cfg)
     fits = {d: api.compile(plan, cfg, device=d).run(10).fits
             for d in (cuda, "cpu")}
@@ -261,8 +264,86 @@ def test_als_on_card_matches_cpu(cuda, preset):
 def test_sorted_als_on_card_counts_launches(cuda):
     t = random_sparse((16, 12, 10), 300, seed=2, distribution="zipf")
     cfg = api.preset("sorted", {"rank": 4, "kernel.autotune": False,
-                                "runtime.tol": 0.0})
+                                "runtime.tol": 0.0, "runtime.num_devices": 1})
     solver = api.compile(api.plan(t, cfg), cfg)
     _build.reset_launch_counts()
     solver.run(3)
     assert _build.LAUNCHES == {"ec_sorted": 9, "ec_fused": 0, "ec_blocked": 0}
+
+
+# -- 4 logical devices: the EC under each shard's device, merge, gather ------
+
+CARDS = {"cuda:0": ["cuda:0"] * 4, "cuda:1": ["cuda:1"] * 4,
+         "two cards": ["cuda:0", "cuda:1"] * 2}
+
+
+def _mesh_devices(cuda, cards):
+    devices = CARDS[cards]
+    needed = max(torch.device(d).index for d in devices) + 1
+    if torch.cuda.device_count() < needed:
+        pytest.skip(f"needs {needed} cards")
+    return devices
+
+
+@pytest.mark.parametrize("spec", [
+    ExchangeSpec(variant="ring", merge="psum_scatter"),
+    ExchangeSpec(variant="overlap", merge="ring_rs", chunk_rows=4,
+                 wire_dtype="bfloat16")], ids=["ring-f32", "overlap-bf16"])
+@pytest.mark.parametrize("variant", ["sorted", "fused", "blocked"])
+@pytest.mark.parametrize("cards", list(CARDS))
+def test_four_device_mttkrp_on_card_matches_cpu(cuda, cards, variant, spec):
+    """The 4-logical-device MTTKRP (r = 2) on the card against the same on
+    4 logical CPU devices, bitwise: the kernels equal their plain versions
+    bitwise, and the merge and the gather add and copy the same values in
+    the same order. Each shard's kernel launches on its own device."""
+    devices = _mesh_devices(cuda, cards)
+    t = random_sparse((40, 30, 20), 1500, seed=7, distribution="zipf")
+    plan = build_plan(t, 4, replication=2,
+                      layout="sorted" if variant == "sorted" else "blocked")
+    rng = np.random.default_rng(0)
+    glob = [rng.normal(size=(s, 8)).astype(np.float32) for s in t.shape]
+    outs = {}
+    for where in ("card", "cpu"):
+        mesh = dm.cp_mesh(4, 2, devices=devices if where == "card"
+                          else ["cpu"] * 4)
+        factors = []
+        for w, g in enumerate(glob):
+            f = np.zeros((plan.modes[w].padded_rows, 8), np.float32)
+            f[plan.global_to_padded[w]] = g
+            factors.append([torch.from_numpy(f).to(d) for d in mesh.devices])
+        before = _build.LAUNCHES[f"ec_{variant}"]
+        outs[where] = [dm.distributed_mttkrp(
+            plan, mode, mesh, dm.shard_plan_mode(plan.modes[mode], mesh),
+            factors, variant=variant, exchange_spec=spec)
+            for mode in range(3)]
+        if where == "card":
+            assert _build.LAUNCHES[f"ec_{variant}"] == before + 12
+            for mode_out in outs[where]:
+                assert [o.device for o in mode_out] == list(mesh.devices)
+    for card_out, cpu_out in zip(outs["card"], outs["cpu"]):
+        for a, b in zip(card_out, cpu_out):
+            torch.testing.assert_close(a.cpu(), b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("cards", list(CARDS))
+def test_four_device_als_on_card(cuda, cards):
+    """Ten sweeps on 4 logical devices on the card: every replica holds the
+    same bits, the fits agree with 4 logical CPU devices to 1e-4 (the
+    card's grams and solve sum in another order), and ec_sorted launched
+    once per device, mode and sweep."""
+    devices = _mesh_devices(cuda, cards)
+    t = random_sparse((40, 30, 20), 1500, seed=7, distribution="zipf")
+    cfg = api.preset("sorted", {"rank": 8, "kernel.autotune": False,
+                                "runtime.tol": 0.0, "runtime.num_devices": 4,
+                                "partition.replication": 2})
+    plan = api.plan(t, cfg)
+    solver = api.compile(plan, cfg, mesh=dm.cp_mesh(4, 2, devices=devices))
+    _build.reset_launch_counts()
+    res = solver.run(10)
+    assert _build.LAUNCHES["ec_sorted"] == 3 * 4 * 10
+    s = solver.state
+    for reps in s.factors + s.grams + [s.lam, s.replica_fits]:
+        for x in reps[1:]:
+            assert torch.equal(reps[0].cpu(), x.cpu())
+    cpu = api.compile(plan, cfg, device="cpu").run(10)
+    np.testing.assert_allclose(res.fits, cpu.fits, atol=1e-4)
