@@ -63,10 +63,35 @@ Phases, each of which exits non-zero on failure:
    ``ec_sorted``'s plain bits on the card. Per run it prints the steady
    sweep time, per mode the EC and the exchange (merge + gather) ms from
    CUDA events, the peak allocation and the plan seconds.
-7. Summary: one JSON line ``{"kernels": [...]}`` (``ms``, ``plain_ms`` and
+7. Rebalance: the dynamic load balancer on 4 logical devices of one card
+   (``--cards 4``: on ``cuda:k``), ``sorted`` preset, rank 32, with
+   ``cadence=1``, ``imbalance_threshold=1.1``, ``migration_budget=0.4`` and
+   ``probe_repeats=2``. (a) The multi-device phase's r = 2 amazon plan;
+   (b) the hot-index tensor of tests/test_schedule_multidevice.py scaled
+   25x in nonzeros and mode-0 size (and 5x in modes 1-2, so that its 3 hot
+   indices keep 30 % of the nonzeros after duplicates merge), planned
+   ``equal_nnz`` (one group of 4). Each case runs ``"off"`` for 6 sweeps,
+   ``"measure"`` for 4 (factors and fits bitwise those of ``"off"`` after 4)
+   and ``"on"`` for 6 (fits within 1e-4 of ``"off"``, and for (a) of the
+   one-device run). Counts are set to 0 just before each run and read
+   just after; the solver counts each rebalance point's probe launches
+   as they run. The probes must have launched ``ec_sorted`` once per mode
+   and device for the warm-up and each repeat, and nothing else; the rest
+   of the run once per mode, device and sweep. Replicas stay bitwise equal. Per rebalance point it prints the
+   per-mode, per-device probe ms, the max/mean imbalance measured (EWMA
+   and raw) and modelled, migrations, moved nnz, the epoch after, and the
+   host seconds of the probes, the apply and the re-placement. Where
+   nonzeros moved, the placed shards must be the new plan's arrays, each
+   group must hold the same nonzeros in the same order member after member
+   (so each is covered once), and device 0's shard must give
+   ``ec_sorted``'s plain bits on the card. (b) must migrate; (a) records
+   whether it did.
+8. Summary: one JSON line ``{"kernels": [...]}`` (``ms``, ``plain_ms`` and
    ``bound_ms`` summed over the three modes, i.e. one sweep's launches;
    ``launches`` from the main-path run, ``multi_device_launches`` from the
-   multi-device path's), the card's name and power limit, and last
+   multi-device path's, ``rebalance_launches`` from the rebalance phase's
+   ``"measure"`` and ``"on"`` runs, of which ``rebalance_probe_launches``
+   were counted around the probes), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``. With ``--out PATH`` every per-mode
    number also goes to a JSON file.
 """
@@ -110,8 +135,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    """Print a phase's header with the seconds since the smoke started."""
+    print(f"== {name} (t={time.perf_counter() - _START:.1f} s)", flush=True)
 
 
 def smi_line() -> str:
@@ -556,6 +585,11 @@ def multi_device(api, tensor, cfg, one_dev_fits, cards: int) -> dict:
         print(f"planned again at r=2 so that the merge runs "
               f"(plan {plans[1][2]:.1f} s)", flush=True)
     out = {"r_auto": r_auto, "plans": []}
+    # the rebalance phase migrates inside groups: it takes the r = 2 plan
+    # (or the auto plan, where that replicates)
+    kept = next(((c, p) for c, p, _ in plans if p.modes[0].r == 2),
+                next(((c, p) for c, p, _ in plans if p.modes[0].r > 1),
+                     None))
     for pcfg, plan, plan_s in plans:
         r = plan.modes[0].r
         mesh = mttkrp.cp_mesh(MD_DEVICES, r, devices=[
@@ -627,6 +661,258 @@ def multi_device(api, tensor, cfg, one_dev_fits, cards: int) -> dict:
                              "shard0_max_abs_err": shard_err,
                              "runs": runs})
         del plan
+    return out, kept
+
+
+RB_SETTINGS = {"schedule.cadence": 1, "schedule.imbalance_threshold": 1.1,
+               "schedule.migration_budget": 0.4, "schedule.probe_repeats": 2}
+RB_MEASURE_SWEEPS = 4
+RB_SWEEPS = 6          # the "off" and "on" runs
+HOT_NNZ = 2_000_000
+HOT_SHAPE = (1_638_400, 1280, 1280)
+
+
+def hot_index_tensor(seed: int = 0):
+    """tests/test_schedule_multidevice.py's hot-index tensor (30 % of the
+    nonzeros on 3 indices of mode 0, the rest scattered) scaled 25x in
+    nonzeros and mode-0 size. Its modes 1-2 grow 5x as well (256 to 1280):
+    at 256 the 600 k hot draws fall on only 3 x 256 x 256 cells, and after
+    duplicates merge the hot indices hold 12 % of the nonzeros instead of
+    30 % (equal-nnz members then differ by 1.13x in blocks, not ~18x)."""
+    from repro_torch.core.coo import SparseTensor
+    rng = np.random.default_rng(seed)
+    hot = HOT_NNZ * 3 // 10
+    i0 = np.concatenate([rng.integers(0, 3, hot),
+                         rng.integers(3, HOT_SHAPE[0], HOT_NNZ - hot)])
+    ind = np.stack([i0, rng.integers(0, HOT_SHAPE[1], HOT_NNZ),
+                    rng.integers(0, HOT_SHAPE[2], HOT_NNZ)], 1)
+    return SparseTensor(ind.astype(np.int32),
+                        rng.standard_normal(HOT_NNZ).astype(np.float32),
+                        HOT_SHAPE).deduplicated()
+
+
+def group_entries(part, group: int) -> list[np.ndarray]:
+    """A group's stored nonzeros, member after member: local rows, value
+    bits and indices. A migration only moves the boundaries between the
+    members of a row-sorted run, so this sequence must not change: then
+    every nonzero is still covered exactly once (an O(nnz) check, where
+    sorting the multiset of 20 M entries takes minutes of host time)."""
+    devs = range(group * part.r, (group + 1) * part.r)
+    masks = [part.values[d] != 0 for d in devs]
+    return [np.concatenate([a[d][m] for d, m in zip(devs, masks)])
+            for a in (part.local_rows, part.values.view(np.int32),
+                      part.indices)]
+
+
+def rebalance_run(api, plan, cfg, mesh, rebalance: str, sweeps: int,
+                  label: str):
+    """One run under ``schedule.rebalance=rebalance``: counts set to 0
+    just before it and read just after; checks the launches (sweeps and
+    probes), the fits and the replicas; prints every rebalance point."""
+    import torch
+    from repro_torch.kernels import _build
+    rcfg = cfg.with_overrides({**RB_SETTINGS,
+                               "schedule.rebalance": rebalance})
+    solver = api.compile(plan, rcfg, mesh=mesh)
+    sync_all()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = solver.run(sweeps)
+    sync_all()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    fits = np.asarray(res.fits)
+    points = len(solver.schedule_events)
+    cells = plan.nmodes * mesh.num_devices
+    per_point = cells * (1 + RB_SETTINGS["schedule.probe_repeats"])
+    if points != sweeps - 1:
+        fail(f"{label}: {points} rebalance points in {sweeps} sweeps at "
+             f"cadence 1, expected {sweeps - 1}")
+    # the probes' launches, counted by the solver around each probe
+    probe_counts = [tm["probe_launches"] for tm in solver.rebalance_timings]
+    for c in probe_counts:
+        if c != {**{k: 0 for k in c}, "ec_sorted": per_point}:
+            fail(f"{label}: a rebalance point's probes launched {c}, "
+                 f"expected {per_point} of ec_sorted (warm-up + repeats "
+                 f"per mode and device) and nothing else")
+    probes = sum(c["ec_sorted"] for c in probe_counts)
+    if counts["ec_sorted"] - probes != sweeps * cells:
+        fail(f"{label}: the sweeps launched ec_sorted "
+             f"{counts['ec_sorted'] - probes} times ({counts['ec_sorted']} "
+             f"in all, {probes} by the probes), expected {sweeps} sweeps "
+             f"x {cells}")
+    if fits.shape != (sweeps,) or not np.isfinite(fits).all():
+        fail(f"{label}: fits {fits} are not {sweeps} finite values")
+    if (np.diff(fits) < -FIT_TOL).any():
+        fail(f"{label}: fits decrease: {fits}")
+    st = solver.state
+    for reps in st.factors + st.grams + [st.lam, st.replica_fits]:
+        if not all(torch.equal(reps[0], x.to(reps[0].device))
+                   for x in reps[1:]):
+            fail(f"{label}: the replicas hold different bits")
+    recs = []
+    for ev, tm in zip(solver.schedule_events, solver.rebalance_timings):
+        probe_ms = [[1e3 * x for x in tm["probe_s"][m]]
+                    for m in range(plan.nmodes)]
+        raw = [max(p) / (sum(p) / len(p)) for p in probe_ms]
+        rec = {"sweep": ev["sweep"], "probe_ms": probe_ms,
+               "imbalance_ewma": [ev["imbalance"][m]
+                                  for m in range(plan.nmodes)],
+               "imbalance_raw": raw,
+               "modelled_imbalance": [ev["modelled_imbalance"][m]
+                                      for m in range(plan.nmodes)],
+               "migrations": ev["migrations"], "moved_nnz": ev["moved_nnz"],
+               "applied": ev.get("applied", []),
+               "epoch_after": ev.get("epoch_after"),
+               "probe_host_s": tm["observe_s"], "apply_s": tm["apply_s"],
+               "replace_s": tm["replace_s"], "moved_modes": tm["moved_modes"]}
+        recs.append(rec)
+        print(f"{label} sweep {rec['sweep']}: probe ms per mode and device "
+              f"{[[round(x, 3) for x in p] for p in probe_ms]}; max/mean "
+              f"measured {[round(x, 3) for x in rec['imbalance_ewma']]} "
+              f"(EWMA), {[round(x, 3) for x in raw]} (this probe), "
+              f"modelled {[round(x, 3) for x in rec['modelled_imbalance']]}"
+              f"; {rec['migrations']} migration(s), {rec['moved_nnz']} nnz "
+              f"moved, epoch after {rec['epoch_after']}; host s: probes "
+              f"{rec['probe_host_s']:.3f}, apply {rec['apply_s']:.3f}, "
+              f"re-place {rec['replace_s']:.3f}", flush=True)
+    print(f"{label}: {sweeps} sweeps in {wall:.2f} s; fits "
+          f"{[round(float(f), 6) for f in fits]}; ec_sorted launches "
+          f"{counts['ec_sorted']} ({probes} by the probes); epoch "
+          f"{solver.plan.rebalance_epoch}", flush=True)
+    out = {"fits": fits.tolist(), "wall_s": wall,
+           "launches": counts["ec_sorted"], "probe_launches": probes,
+           "epoch": solver.plan.rebalance_epoch, "points": recs,
+           "trajectory": [max(r["imbalance_ewma"]) for r in recs]}
+    return solver, res, out
+
+
+def rebalance_case(api, plan, cfg, mesh, label: str, *, must_migrate: bool,
+                   one_dev_fits=None) -> dict:
+    """``"off"``, ``"measure"`` and ``"on"`` on one plan (see phase 7)."""
+    import torch
+    from repro_torch.kernels import mttkrp_sorted
+    torch.cuda.empty_cache()
+    for c in {d.index for d in mesh.devices}:
+        torch.cuda.reset_peak_memory_stats(c)
+    off = api.compile(plan, cfg.with_overrides(RB_SETTINGS), mesh=mesh)
+    for k in range(1, RB_SWEEPS + 1):  # run() resumes: one more sweep each
+        res = off.run(k)
+        if k == RB_MEASURE_SWEEPS:
+            snap = res
+    off_fits = np.asarray(res.fits)
+    del off, res
+    torch.cuda.empty_cache()
+    out = {"off_fits": off_fits.tolist()}
+    solver, res, out["measure"] = rebalance_run(
+        api, plan, cfg, mesh, "measure", RB_MEASURE_SWEEPS,
+        f"{label} measure")
+    if res.fits != snap.fits or not all(
+            np.array_equal(a, b) for a, b in zip(res.factors, snap.factors)):
+        fail(f"{label}: measure-only factors or fits are not off's bits")
+    del solver, res
+    torch.cuda.empty_cache()
+    solver, res, out["on"] = rebalance_run(api, plan, cfg, mesh, "on",
+                                           RB_SWEEPS, f"{label} on")
+    diff = float(np.abs(np.asarray(res.fits) - off_fits).max())
+    if diff > FIT_TOL:
+        fail(f"{label}: on fits {res.fits} differ from off's {off_fits} by "
+             f"{diff:.2e}")
+    out["max_abs_diff_off_fits"] = diff
+    if one_dev_fits is not None:
+        n = min(len(one_dev_fits), RB_SWEEPS)
+        d1 = float(np.abs(np.asarray(res.fits[:n]) - one_dev_fits[:n]).max())
+        if d1 > FIT_TOL:
+            fail(f"{label}: on fits {res.fits} differ from the one-device "
+                 f"run's {one_dev_fits} by {d1:.2e}")
+        out["max_abs_diff_one_device_fits"] = d1
+    moved = sorted({m for r in out["on"]["points"] for m in r["moved_modes"]})
+    out["moved_nnz"] = sum(r["moved_nnz"] for r in out["on"]["points"])
+    out["moved_modes"] = moved
+    if must_migrate and not (moved and solver.plan.rebalance_epoch >= 1):
+        fail(f"{label}: no migration was applied (epoch "
+             f"{solver.plan.rebalance_epoch})")
+    for mode in moved:
+        part = solver.plan.modes[mode]
+        for k, dev in enumerate(solver.dev_arrays[mode]):
+            for name in ("indices", "values", "local_rows", "block_to_tile",
+                         "tile_visited"):
+                if not torch.equal(getattr(dev, name).cpu(),
+                                   torch.from_numpy(getattr(part, name)[k])):
+                    fail(f"{label} mode {mode}: device {k}'s placed {name} "
+                         f"are not the rebalanced plan's")
+        for g in range(part.n_groups):
+            before = group_entries(plan.modes[mode], g)
+            if not all(np.array_equal(x, y) for x, y in
+                       zip(group_entries(part, g), before)):
+                fail(f"{label} mode {mode} group {g}: the migrated shards do "
+                     f"not hold the group's nonzeros in their run's order, "
+                     f"each once")
+        dev0 = solver.dev_arrays[mode][0]
+        f0 = [f[0] for f in solver.state.factors]
+        args, geo = kernel_cases(dev0, part, f0, mode)["ec_sorted"][2:4]
+        got = mttkrp_sorted.ec_sorted(*args, **geo)
+        with slot_order():
+            ref = mttkrp_sorted.ec_sorted_plain(*args, **geo)
+        if not torch.equal(got, ref):
+            fail(f"{label} mode {mode}: ec_sorted on device 0's migrated "
+                 f"shard is not bitwise equal to its plain version")
+        print(f"{label} mode {mode}: migrated shards placed as planned, "
+              f"each group's nonzeros in order and once, device 0's "
+              f"ec_sorted = plain bits; "
+              f"blocks per device {part.blocks_true.tolist()} (were "
+              f"{plan.modes[mode].blocks_true.tolist()})", flush=True)
+        del dev0, f0, args, got, ref
+    out["peak_alloc_bytes"] = max(torch.cuda.max_memory_allocated(c)
+                                  for c in {d.index for d in mesh.devices})
+    print(f"{label}: max/mean trajectory measure "
+          f"{[round(x, 3) for x in out['measure']['trajectory']]}, on "
+          f"{[round(x, 3) for x in out['on']['trajectory']]}; moved nnz "
+          f"{out['moved_nnz']} in modes {moved}; peak alloc per card "
+          f"{out['peak_alloc_bytes'] / 2**30:.2f} GiB", flush=True)
+    del solver, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def rebalance_phase(api, cfg, kept, one_dev_fits, cards: int) -> dict:
+    """Phase 7: (a) amazon at r = 2 (the multi-device phase's plan), (b)
+    the hot-index tensor, ``equal_nnz``."""
+    from repro_torch.core import mttkrp
+    out = {}
+    devices = [f"cuda:{k % cards}" for k in range(MD_DEVICES)]
+    if kept is None:
+        fail("the multi-device phase planned no r > 1 plan to rebalance")
+    acfg, aplan = kept
+    r = aplan.modes[0].r
+    mesh = mttkrp.cp_mesh(MD_DEVICES, r, devices=devices)
+    print(f"-- (a) amazon, r={r}, {where(mesh)}", flush=True)
+    out["amazon"] = rebalance_case(api, aplan, acfg, mesh,
+                                   f"(a) amazon r={r}", must_migrate=False,
+                                   one_dev_fits=one_dev_fits)
+    out["amazon"]["r"] = r
+    t0 = time.perf_counter()
+    hot = hot_index_tensor()
+    gen_s = time.perf_counter() - t0
+    hcfg = cfg.with_overrides({"runtime.num_devices": MD_DEVICES,
+                               "partition.strategy": "equal_nnz",
+                               "partition.replication": None})
+    t0 = time.perf_counter()
+    hplan = api.plan(hot, hcfg)
+    plan_s = time.perf_counter() - t0
+    part = hplan.modes[0]
+    print(f"-- (b) hot-index tensor: shape={hot.shape} nnz={hot.nnz} (hot "
+          f"indices {int((hot.indices[:, 0] < 3).sum())}); generate "
+          f"{gen_s:.1f} s, plan {plan_s:.1f} s; r={part.r}; mode 0 blocks "
+          f"per device {part.blocks_true.tolist()}, nnz_max per mode "
+          f"{[p.nnz_max for p in hplan.modes]}", flush=True)
+    mesh = mttkrp.cp_mesh(MD_DEVICES, part.r, devices=devices)
+    out["hot_index"] = rebalance_case(api, hplan, hcfg, mesh,
+                                      "(b) hot-index", must_migrate=True)
+    out["hot_index"].update(
+        shape=list(hot.shape), nnz=hot.nnz, generate_s=gen_s, plan_s=plan_s,
+        blocks_true=[p.blocks_true.tolist() for p in hplan.modes],
+        nnz_max=[p.nnz_max for p in hplan.modes])
     return out
 
 
@@ -737,11 +1023,17 @@ def main() -> None:
              f"{vfits_of['fused']}")
 
     phase("multi-device path")
-    md = multi_device(api, tensor, cfg, fits, args.cards)
+    md, kept = multi_device(api, tensor, cfg, fits, args.cards)
     md_launches = {name: sum(run["launches"] for p in md["plans"]
                              for run in p["runs"].values()
                              if f"ec_{run['variant']}" == name)
                    for name in KERNELS}
+
+    phase("rebalance")
+    rb = rebalance_phase(api, cfg, kept, fits, args.cards)
+    del kept
+    rb_runs = [rb[c][m] for c in ("amazon", "hot_index")
+               for m in ("measure", "on")]
 
     phase("summary")
     kernels = []
@@ -752,6 +1044,12 @@ def main() -> None:
             "replaces": REPLACES[name], "launches": launches[name],
             # per-shard launches of the multi-device path (4 per mode)
             "multi_device_launches": md_launches[name],
+            # the rebalance phase's measure and on runs, probes included
+            "rebalance_launches": sum(r["launches"] for r in rb_runs)
+            if name == "ec_sorted" else 0,
+            "rebalance_probe_launches": sum(r["probe_launches"]
+                                            for r in rb_runs)
+            if name == "ec_sorted" else 0,
             "max_abs_err": max(x["max_abs_err"] for x in r),
             "ms": sum(x["ms"] for x in r),
             "plain_ms": sum(x["plain_ms"] for x in r),
@@ -777,7 +1075,8 @@ def main() -> None:
               "sorted_fits": fits.tolist(),
               "ab_fits": {k: v.tolist() for k, v in vfits_of.items()},
               "sweep_wall_s": walls,
-              "per_mode": recs, "multi_device": md, "kernels": kernels}
+              "per_mode": recs, "multi_device": md, "rebalance": rb,
+              "kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -5,8 +5,7 @@ sections, fields, defaults, presets and dotted overrides, so a config
 round-trips through JSON between the two packages. Sections the port does
 not run yet keep their fields; ``api.plan`` and ``api.compile`` raise
 ``NotImplementedError`` naming the ROADMAP item when a config asks for one
-of them (the rebalancer, streaming, checkpointing, tracing, the
-autotuners).
+of them (streaming, checkpointing, tracing, the autotuners).
 
 A :class:`DecomposeConfig` is a frozen composition of five orthogonal
 sub-configs, mirroring the stages of the AMPED pipeline:
@@ -83,8 +82,8 @@ class PartitionConfig:
 class ScheduleConfig:
     """Scheduling knobs. ``policy`` overrides the static group-assignment
     policy (``None`` uses ``partition.strategy``); ``rebalance`` selects the
-    dynamic load balancer's mode (``"off"`` | ``"measure"`` | ``"on"``),
-    which the port does not run yet."""
+    dynamic load balancer's mode (``"off"`` | ``"measure"`` | ``"on"``,
+    see :mod:`repro_torch.schedule.rebalance`)."""
 
     policy: str | None = None        # None = partition.strategy
     rebalance: str = "off"           # "off" | "measure" | "on"
@@ -116,6 +115,10 @@ class ScheduleConfig:
     @property
     def telemetry_enabled(self) -> bool:
         return self.rebalance in ("measure", "on")
+
+    @property
+    def migrations_enabled(self) -> bool:
+        return self.rebalance == "on" and self.migration_budget > 0
 
 
 @dataclasses.dataclass(frozen=True)

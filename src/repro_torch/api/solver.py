@@ -13,11 +13,23 @@ four logical devices on one card; ``device="cpu"`` runs every logical
 device on the CPU. ``load_state`` installs GLOBAL-layout factors and
 ``lam`` — for instance a reference ``CPResult``'s, or the factors of a
 reference checkpoint — onto every replica, so a run carries over between
-the packages. The rebalancer, epoch streaming, checkpointing and span
-tracing raise ``NotImplementedError`` naming their ROADMAP item when the
-config asks for them.
+the packages.
+
+When ``config.schedule.rebalance`` is ``"measure"`` or ``"on"`` the solver
+also owns a :class:`~repro_torch.schedule.rebalance.Rebalancer`: every
+``schedule.cadence`` sweeps it times each logical device's EC on its device,
+recalibrates the cost model, and — in ``"on"`` mode — applies
+block-granular nnz migrations between replication-group members as an
+incremental plan update that changes no array's shape, then places the
+moved modes' shards anew (synchronously: the reference's background
+re-placement waits for the streaming slice of the port). Sweeps between
+rebalance points read nothing on the host. Epoch streaming, checkpointing
+and span tracing raise ``NotImplementedError`` naming their ROADMAP item
+when the config asks for them.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -28,6 +40,8 @@ from repro_torch.core import als as als_mod
 from repro_torch.core import mttkrp as dmttkrp
 from repro_torch.core.decompose import CPResult
 from repro_torch.core.partition import CPPlan, validate_plan
+from repro_torch.kernels import _build
+from repro_torch.schedule import rebalance as rebalance_mod
 
 __all__ = ["CPSolver", "compile", "validate_factor_payload", "resolve_device"]
 
@@ -65,9 +79,13 @@ def validate_factor_payload(factors, lam, *, shape, rank,
 def _reject_unported(config: DecomposeConfig) -> None:
     """Raise for every config feature the port does not run yet."""
     unported = [
-        (config.schedule.telemetry_enabled,
-         f"schedule.rebalance={config.schedule.rebalance!r}",
-         "Rebalancer"),
+        # the reference caps migrations at the store's streamed-slot budget
+        # (store.plan.budget_slot_cap) when a memory budget is set
+        (config.schedule.telemetry_enabled
+         and config.runtime.memory_budget is not None,
+         f"runtime.memory_budget with schedule.rebalance="
+         f"{config.schedule.rebalance!r} (the Rebalancer's member caps)",
+         "Streaming and the store"),
         (config.runtime.streaming, "runtime.streaming=True",
          "Streaming and the store"),
         (config.runtime.checkpoint_dir is not None, "runtime.checkpoint_dir",
@@ -95,7 +113,8 @@ def resolve_device(device=None) -> torch.device:
 
 class CPSolver:
     """A compiled CP-ALS session: mesh + per-device shards + per-mode
-    updates + current :class:`~repro_torch.core.als.ALSState`."""
+    updates + current :class:`~repro_torch.core.als.ALSState` (+ optional
+    :class:`~repro_torch.schedule.rebalance.Rebalancer`)."""
 
     def __init__(self, plan: CPPlan, config: DecomposeConfig,
                  mesh: dmttkrp.CPMesh):
@@ -114,6 +133,25 @@ class CPSolver:
                            for p in plan.modes]
         self.updates = als_mod.make_sweep_updates(
             plan, mesh, exchange_spec=self.exchange_spec, **self._kernel_kw)
+        self.rebalancer = None
+        if config.schedule.telemetry_enabled:
+            sched = config.schedule
+            self.rebalancer = rebalance_mod.Rebalancer(
+                imbalance_threshold=sched.imbalance_threshold,
+                migration_budget=sched.migration_budget,
+                ewma_alpha=sched.ewma_alpha,
+                probe_repeats=sched.probe_repeats,
+                kernel_kw=self._kernel_kw,
+                migrate=sched.migrations_enabled)
+        # one dict per rebalance point, as the reference's event log holds
+        # them (``launch.decompose`` prints them)
+        self.schedule_events: list[dict] = []
+        # per rebalance point: the raw probe seconds per mode and device,
+        # the kernel launches the probes made (``_build.LAUNCHES`` deltas),
+        # and the host seconds of the probes, the apply and the
+        # re-placement (kept apart from schedule_events, which stay the
+        # reference's values)
+        self.rebalance_timings: list[dict] = []
         self.reset()
 
     # -- state lifecycle ---------------------------------------------------
@@ -159,24 +197,121 @@ class CPSolver:
                                        self.state, self.updates)
         return self.state
 
+    def _synchronize(self) -> None:
+        for card in {d for d in self.mesh.devices if d.type == "cuda"}:
+            torch.cuda.synchronize(card)
+
+    def rebalance_step(self):
+        """One rebalance point: wait for the enqueued sweeps, probe every
+        mode's per-device EC time on the live replicas, recalibrate the
+        cost model, and (in ``rebalance="on"``) apply any triggered
+        migrations. Returns the
+        :class:`~repro_torch.schedule.rebalance.ReplanDecision`, or None
+        when the scheduler is off.
+
+        An applied decision's plan passes :func:`validate_plan` (each
+        device visits a tile in one run of blocks, which the kernels need:
+        they write each run's tile once, without atomics), and only the
+        modes where something moved are placed anew, synchronously, by
+        :func:`~repro_torch.core.mttkrp.shard_plan_mode` (which recomputes
+        the ``sorted`` descriptors)."""
+        if self.rebalancer is None:
+            return None
+        self._synchronize()
+        launched = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        decision = self.rebalancer.observe(self.plan, self.state.factors,
+                                           sweep=self.state.sweep,
+                                           dev_arrays=self.dev_arrays)
+        t1 = time.perf_counter()
+        event = dict(self.rebalancer.events[-1])
+        timing = {"sweep": self.state.sweep,
+                  "probe_s": {m: t.tolist() for m, t in
+                              self.rebalancer.probe_times.items()},
+                  # kernel launches the probes made, counted as they ran
+                  "probe_launches": {k: _build.LAUNCHES[k] - n
+                                     for k, n in launched.items()},
+                  "observe_s": t1 - t0, "apply_s": 0.0, "replace_s": 0.0,
+                  "moved_modes": []}
+        if decision.triggered:
+            plan, applied = rebalance_mod.apply_rebalance(self.plan,
+                                                          decision)
+            self.plan = validate_plan(plan)
+            t2 = time.perf_counter()
+            # Re-place only modes where something actually moved: a skipped
+            # migration leaves bit-identical arrays. The MTTKRPFn of each
+            # mode update keeps the part it was built with; it reads only
+            # mode, rows_max, tile, block_p, r and n_groups, none of which
+            # a migration changes (shapes and ownership stay).
+            moved = sorted({a["mode"] for a in applied
+                            if a.get("moved_nnz", 0) > 0})
+            for mode in moved:
+                self.dev_arrays[mode] = dmttkrp.shard_plan_mode(
+                    self.plan.modes[mode], self.mesh)
+            self._synchronize()
+            timing.update(apply_s=t2 - t1,
+                          replace_s=time.perf_counter() - t2,
+                          moved_modes=moved)
+            event["applied"] = applied
+            event["epoch_after"] = self.plan.rebalance_epoch
+        self.schedule_events.append(event)
+        self.rebalance_timings.append(timing)
+        return decision
+
     def run(self, iters: int, *, tol: float | None = None,
             verbose: bool = False) -> CPResult:
         """Sweep until ``iters`` total sweeps or the fit plateaus below
         ``tol`` (default: config.runtime.tol). Resumes from the current
-        state's sweep counter. The plateau test reads each fit on the host
-        between sweeps; with ``tol=0`` nothing is read until the result."""
+        state's sweep counter. Hits a rebalance point every
+        ``config.schedule.cadence`` sweeps when the scheduler is enabled,
+        except after the last sweep. The plateau test reads each fit on
+        the host between sweeps; with ``tol=0`` nothing is read until the
+        result (or a rebalance point)."""
         if tol is None:
             tol = self.config.runtime.tol
+        cadence = self.config.schedule.cadence
         for _ in range(self.state.sweep, iters):
             state = self.sweep()
             if verbose:
                 print(f"sweep {state.sweep}: "
                       f"fit={float(state.fits[-1]):.6f}")
+            if self.rebalancer is not None \
+                    and state.sweep % cadence == 0 \
+                    and state.sweep < iters:
+                self.rebalance_step()
             if tol > 0 and len(state.fits) >= 2 and \
                     abs(float(state.fits[-1])
                         - float(state.fits[-2])) < tol:
                 break
         return self.result()
+
+    def imbalance_report(self) -> dict:
+        """Measured-vs-modelled imbalance per mode plus the rebalance
+        event log — what ``launch.decompose`` prints. Empty when the
+        scheduler never ran."""
+        if self.rebalancer is None or not self.rebalancer.ewma_times:
+            return {"enabled": False, "events": []}
+        ratio = rebalance_mod.imbalance_ratio
+        per_mode = {}
+        for mode, part in enumerate(self.plan.modes):
+            measured = self.rebalancer.ewma_times.get(mode)
+            per_mode[mode] = {
+                "measured_imbalance":
+                    ratio(measured) if measured is not None else None,
+                "modelled_imbalance":
+                    ratio(self.rebalancer.cost_model.predict(part)),
+                "r": int(part.r),
+            }
+        c = self.rebalancer.cost_model.coeffs
+        return {
+            "enabled": True,
+            "rebalance_epoch": int(self.plan.rebalance_epoch),
+            "coefficients": {"sec_per_nnz": c.sec_per_nnz,
+                             "sec_per_slot": c.sec_per_slot,
+                             "sec_fixed": c.sec_fixed},
+            "per_mode": per_mode,
+            "events": list(self.schedule_events),
+        }
 
     def exchange_report(self, *, measure: bool = True) -> dict:
         """Modelled — and, with ``measure``, counted — per-device exchange

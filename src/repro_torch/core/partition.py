@@ -234,6 +234,10 @@ class CPPlan:
     global_to_padded: tuple[np.ndarray, ...]   # per mode: (I_w,) int32
     padded_to_global: tuple[np.ndarray, ...]   # per mode: (padded,) int32, -1 pad
     norm: float                                 # ||X||_F for ALS fit
+    # Incremented by every applied schedule.rebalance decision
+    # (schedule/rebalance.py), so a decision is never applied to a plan it
+    # was not made for.
+    rebalance_epoch: int = 0
 
     @property
     def nmodes(self) -> int:
@@ -266,7 +270,9 @@ def block_device_rows(lrow: np.ndarray, vals: np.ndarray, inds: np.ndarray,
     ``lrow``: (k,) local output rows in [0, n_tiles*tile); ``vals``: (k,)
     values; ``inds``: (k, N) index rows. Returns (rows_b, vals_b, inds_b,
     b2t_b) where the first three have ``sum(ceil(per_tile/block_p))*block_p``
-    entries and ``b2t_b`` maps each block to its tile.
+    entries and ``b2t_b`` maps each block to its tile. Shared by
+    :func:`partition_mode` and the incremental re-blocking of
+    :mod:`repro_torch.schedule.rebalance`.
     """
     k = lrow.size
     nmodes = inds.shape[1] if inds.ndim == 2 else 0

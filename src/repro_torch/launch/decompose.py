@@ -6,6 +6,9 @@
         --set kernel.autotune=false --scale 2e-5 --device cpu   # no card
     PYTHONPATH=src python -m repro_torch.launch.decompose --profile twitch \\
         --scale 2e-5 --device cpu --devices 4 --exchange-report
+    PYTHONPATH=src python -m repro_torch.launch.decompose --profile twitch \\
+        --scale 2e-5 --device cpu --devices 4 \\
+        --set partition.strategy=equal_nnz --rebalance
 
 Runs the staged repro_torch.api pipeline — on ``cuda:0 .. cuda:N-1`` (one
 logical device per card; fewer visible cards than ``--devices`` raises)
@@ -13,9 +16,12 @@ unless ``--device cpu``, which runs the N logical devices on the CPU — and
 reports preprocessing (plan) time separately from compile (shard placement)
 and execution time, as the reference launcher does. ``--exchange-report``
 prints the modelled exchange bytes of one sweep and the bytes that each
-logical device counted. The
-``fused`` and ``sorted`` presets turn the autotuner on, which the port does
-not have yet: pass ``--set kernel.autotune=false``.
+logical device counted. ``--rebalance`` (``schedule.rebalance=on``) and
+``--measure-balance`` (``=measure``) turn the dynamic load balancer on and
+print its calibrated cost model, the measured and modelled max/mean
+imbalance per mode and each rebalance point, as the reference launcher
+does. The ``fused`` and ``sorted`` presets turn the autotuner on, which
+the port does not have yet: pass ``--set kernel.autotune=false``.
 """
 from __future__ import annotations
 
@@ -48,6 +54,14 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the solve runs (cpu: the kernels' plain "
                          "PyTorch versions)")
+    ap.add_argument("--rebalance", action="store_true",
+                    help="enable the dynamic load balancer "
+                         "(schedule.rebalance=on; tune via --set "
+                         "schedule.cadence=... etc.)")
+    ap.add_argument("--measure-balance", action="store_true",
+                    help="collect per-device EC-time telemetry and report "
+                         "imbalance without migrating "
+                         "(schedule.rebalance=measure)")
     ap.add_argument("--exchange-report", action="store_true",
                     help="print modelled vs counted exchange bytes per "
                          "sweep")
@@ -59,6 +73,10 @@ def main(argv=None):
     cfg = api.preset(args.preset, {"rank": args.rank})
     if args.devices:
         cfg = cfg.with_overrides({"runtime.num_devices": args.devices})
+    if args.rebalance:
+        cfg = cfg.with_overrides({"schedule.rebalance": "on"})
+    elif args.measure_balance:
+        cfg = cfg.with_overrides({"schedule.rebalance": "measure"})
     cfg = api.apply_set_args(cfg, args.set_args)
 
     if args.tns is not None:
@@ -70,7 +88,8 @@ def main(argv=None):
     print(f"{source}: shape={t.shape} nnz={t.nnz} "
           f"preset={args.preset} rank={cfg.rank} "
           f"variant={cfg.kernel.resolved_variant()} "
-          f"policy={cfg.resolved_policy()} device={args.device}")
+          f"policy={cfg.resolved_policy()} "
+          f"rebalance={cfg.schedule.rebalance} device={args.device}")
 
     t0 = time.perf_counter()
     plan = api.plan(t, cfg, device=args.device)
@@ -88,6 +107,23 @@ def main(argv=None):
     print(f"plan {t_plan:.1f}s | compile {t_compile:.1f}s | "
           f"execute {t_exec:.1f}s")
     print(f"{res.sweeps} sweeps; final fit {res.fits[-1]:.5f}")
+
+    report = solver.imbalance_report()
+    if report.get("enabled"):
+        c = report["coefficients"]
+        print(f"schedule: epoch {report['rebalance_epoch']} | calibrated "
+              f"sec_per_nnz={c['sec_per_nnz']:.3e} "
+              f"sec_per_slot={c['sec_per_slot']:.3e} "
+              f"sec_fixed={c['sec_fixed']:.3e}")
+        for mode, row in report["per_mode"].items():
+            meas = row["measured_imbalance"]
+            print(f"  mode {mode} (r={row['r']}): measured max/mean "
+                  f"{meas:.3f} | modelled {row['modelled_imbalance']:.3f}")
+        for ev in report["events"]:
+            worst = max(ev["imbalance"].values())
+            print(f"  sweep {ev['sweep']}: worst imbalance {worst:.3f}, "
+                  f"{ev['migrations']} migration(s), "
+                  f"{ev['moved_nnz']} nnz moved")
     if args.exchange_report:
         rep = solver.exchange_report()
         spec = rep["spec"]

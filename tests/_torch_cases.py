@@ -224,3 +224,25 @@ BLOCKED_SHAPES = [(8, 16, 8, 1), (8, 32, 16, 2), (16, 64, 32, 2),
 # (seed, nblocks, n_tiles) standing in for test_kernels.py:78's property
 BLOCKED_PROPERTY = [(0, 1, 1), (17, 3, 2), (404, 6, 4), (2024, 2, 3),
                     (9999, 5, 1)]
+
+
+# -- the rebalancer's hot-index tensor ------------------------------------
+
+def skewed_tensor(nnz=8000, seed=0, explicit_zero=False):
+    """tests/test_schedule.py's hot-index tensor: a few indices of mode 0
+    carry most nonzeros, the rest scatter, so equal-nnz members execute
+    very different block counts. ``explicit_zero`` stores one genuine entry
+    with the value 0.0 (in a member's row range, not on a hot index)."""
+    rng = np.random.default_rng(seed)
+    hot = nnz * 6 // 10
+    i0 = np.concatenate([rng.integers(0, 3, hot),
+                         rng.integers(3, 1024, nnz - hot)])
+    ind = np.stack([i0, rng.integers(0, 40, nnz), rng.integers(0, 40, nnz)],
+                   axis=1).astype(np.int32)
+    t = SparseTensor(ind, rng.standard_normal(nnz).astype(np.float32),
+                     (1024, 40, 40)).deduplicated()
+    if explicit_zero:
+        vals = t.values.copy()
+        vals[int(np.flatnonzero(t.indices[:, 0] == 700)[0])] = 0.0
+        t = SparseTensor(t.indices, vals, t.shape)
+    return t

@@ -223,7 +223,8 @@ def test_plan_rejects_unported(small_tensor, overrides, item):
 
 
 @pytest.mark.parametrize("overrides,item", [
-    ({"schedule.rebalance": "on"}, "Rebalancer"),
+    ({"schedule.rebalance": "on", "runtime.memory_budget": 1 << 20},
+     "Rebalancer"),
     ({"runtime.streaming": True}, "Streaming"),
     ({"runtime.checkpoint_dir": "x"}, "checkpoint"),
     ({"runtime.trace": True}, "tracing"),

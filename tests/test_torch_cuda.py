@@ -16,7 +16,7 @@ torch = pytest.importorskip("torch")
 
 from _torch_cases import (BLOCKED_PROPERTY, BLOCKED_SHAPES,  # noqa: E402
                           DEGENERATE_SORTED, LONG_RUN, blocked_case,
-                          partitioned_case, shard_arrays)
+                          partitioned_case, shard_arrays, skewed_tensor)
 import repro_torch.api as api  # noqa: E402
 from repro_torch.comm import ExchangeSpec  # noqa: E402
 from repro_torch.core import mttkrp as dm  # noqa: E402
@@ -25,6 +25,7 @@ from repro_torch.core.coo import random_sparse  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.mttkrp_blocked import (RING_DEPTH,  # noqa: E402
                                                 ec_blocked)
+from repro_torch.schedule import rebalance  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -347,3 +348,89 @@ def test_four_device_als_on_card(cuda, cards):
             assert torch.equal(reps[0].cpu(), x.cpu())
     cpu = api.compile(plan, cfg, device="cpu").run(10)
     np.testing.assert_allclose(res.fits, cpu.fits, atol=1e-4)
+
+
+# -- the rebalancer: probes, migrated shards, measure-only runs ---------------
+
+LAYOUT = {"sorted": "sorted", "fused": "blocked", "blocked": "blocked"}
+
+
+def _card_factors(plan, devices, rank=8, seed=0):
+    rng = np.random.default_rng(seed)
+    out = []
+    for m in plan.modes:
+        f = rng.normal(size=(m.padded_rows, rank)).astype(np.float32)
+        out.append([torch.from_numpy(f).to(d, copy=True) for d in devices])
+    return out
+
+
+@pytest.mark.parametrize("variant", ["sorted", "fused", "blocked"])
+def test_probe_times_each_kernel_with_cuda_events(cuda, variant):
+    """The probe launches the variant's kernel once to warm up and then
+    ``repeats`` times per logical device, timed with CUDA events: 4 devices
+    of one card, best of 2, positive times."""
+    plan = build_plan(skewed_tensor(), 4, strategy="equal_nnz",
+                      layout=LAYOUT[variant])
+    mesh = dm.cp_mesh(4, 4, devices=["cuda:0"] * 4)
+    factors = _card_factors(plan, mesh.devices)
+    name = f"ec_{variant}"
+    for part in plan.modes:
+        arrays = dm.shard_plan_mode(part, mesh)
+        before = _build.LAUNCHES[name]
+        times = rebalance.measure_mode_device_times(
+            part, factors, dict(use_kernel=True, variant=variant,
+                                num_buffers=2), arrays=arrays, repeats=2)
+        assert _build.LAUNCHES[name] == before + 4 * (1 + 2)
+        assert times.shape == (4,) and np.isfinite(times).all()
+        assert (times > 0).all()
+
+
+@pytest.mark.parametrize("variant", ["sorted", "fused", "blocked"])
+def test_migrated_shards_on_card_give_plain_bits(cuda, variant):
+    """An applied migration, re-placed on cuda:0 by shard_plan_mode: every
+    moved shard's kernel equals the plain version on the CPU bitwise."""
+    plan = build_plan(skewed_tensor(), 4, strategy="equal_nnz",
+                      layout=LAYOUT[variant])
+    migs = rebalance.plan_group_migrations(
+        plan.modes[0], np.array([1.0, 2.0, 2.0, 8.0]), migration_budget=0.3)
+    new, applied = rebalance.apply_rebalance(plan, rebalance.ReplanDecision(
+        epoch=0, sweep=1, triggered=True, imbalance={},
+        modelled_imbalance={}, migrations=tuple(migs)))
+    assert sum(a["moved_nnz"] for a in applied) > 0
+    part = new.modes[0]
+    outs = {}
+    for where in ("card", "cpu"):
+        mesh = dm.cp_mesh(4, 4, devices=["cuda:0" if where == "card"
+                                         else "cpu"] * 4)
+        factors = _card_factors(new, mesh.devices)
+        outs[where] = dm.make_mttkrp_fn(part, mesh, variant=variant).local(
+            dm.shard_plan_mode(part, mesh), factors)
+    for got, want in zip(outs["card"], outs["cpu"], strict=True):
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
+
+
+def test_measure_is_bitwise_off_on_one_card(cuda):
+    """``schedule.rebalance="measure"`` on 4 logical devices of one card:
+    factors and fits bitwise those of ``"off"``, and ec_sorted launched
+    once per mode, device and sweep plus the probes' launches, which the
+    solver counts at each rebalance point."""
+    t = skewed_tensor()
+    base = {"rank": 8, "kernel.autotune": False, "runtime.tol": 0.0,
+            "runtime.num_devices": 4, "partition.strategy": "equal_nnz",
+            "schedule.cadence": 1, "schedule.probe_repeats": 2}
+    runs = {}
+    for mode in ("off", "measure"):
+        cfg = api.preset("sorted", {**base, "schedule.rebalance": mode})
+        solver = api.compile(api.plan(t, cfg), cfg, mesh=dm.cp_mesh(
+            4, 4, devices=["cuda:0"] * 4))
+        _build.reset_launch_counts()
+        runs[mode] = solver.run(4)
+        launches = _build.LAUNCHES["ec_sorted"]
+    assert runs["measure"].fits == runs["off"].fits
+    for a, b in zip(runs["measure"].factors, runs["off"].factors):
+        np.testing.assert_array_equal(a, b)
+    assert launches == 4 * 3 * 4 + 3 * (3 * 4 * (1 + 2))
+    assert len(solver.schedule_events) == 3
+    for tm in solver.rebalance_timings:
+        assert tm["probe_launches"] == {"ec_sorted": 3 * 4 * (1 + 2),
+                                        "ec_fused": 0, "ec_blocked": 0}
