@@ -13,28 +13,29 @@ Phases, each of which exits non-zero on failure:
    ``sorted`` preset at rank 32, tile 8, block_p 128 on one device; prints
    per mode the largest tile run, and the work items that all three kernels
    launch over (``_build.tile_chunks``: their number and the largest in
-   blocks, which must be at most ``CHUNK_BLOCKS``).
+   blocks, which must be at most ``CHUNK_BLOCKS``). Then writes the tensor
+   to a tensor store with the port's ``write_store_from_coo`` in a
+   temporary directory (write seconds, size on disk); every later plan of
+   it is made from the store's manifest statistics
+   (``api.plan(TensorStore(...), cfg)``), which must read no chunk.
 4. Kernel parity: for every mode, runs ``ec_sorted``, ``ec_fused`` and
    ``ec_blocked`` on that mode's shard and holds each against its plain
-   PyTorch version on the card, run under
-   ``torch.use_deterministic_algorithms(True)`` so that its ``index_add_``
-   sums in index order as the kernels do: slot order, and on runs longer
-   than ``CHUNK_BLOCKS`` blocks the fixed two-level order (per-chunk
-   partials, then the chunks in order), which the plain versions follow
-   too. Every kernel must match bitwise, and ``ec_blocked`` must give
-   ``ec_fused``'s bits (one kernel body, one order). The default atomic
-   ``index_add_`` sums in an order that changes from run to run and
-   differs by a few 1e-5 of max|plain| on this profile's hot rows of ~3 M
-   terms; it is timed, and its difference recorded. Each kernel is also
-   held against the slot-order ``ref`` (the semantic oracle,
-   deterministic) to 1e-4·max|ref|: the two-level order regroups those
-   rows' sums. Each kernel's arguments come from ``ops.kernel_args``, as on
-   the main path, and the same launch through ``ops.mttkrp_local`` (with
-   its unvisited-tile masking) must give the same bits. On mode 0 each
-   kernel must also equal the plain version on the CPU bitwise. A 5-mode
-   ``twitch`` case covers nin = 4. Each kernel and plain version (default,
-   atomic mode) is timed with CUDA events (warm-up, then the median of 20
-   runs), and so are the main path's whole EC for the mode
+   PyTorch version on the card, whose ``index_add_`` sums in slot order
+   (``ref.slot_order_index_add``; no flag is set here) as the kernels do:
+   slot order, and on runs longer than ``CHUNK_BLOCKS`` blocks the fixed
+   two-level order (per-chunk partials, then the chunks in order), which
+   the plain versions follow too. Every kernel must match bitwise, and
+   ``ec_blocked`` must give ``ec_fused``'s bits (one kernel body, one
+   order). Each kernel is also held against the slot-order ``ref`` (the
+   semantic oracle): bitwise on every tile whose run is at most
+   ``CHUNK_BLOCKS`` blocks, and to 1e-4·max|ref| elsewhere (the two-level
+   order regroups those rows' sums). Each kernel's arguments come from
+   ``ops.kernel_args``, as on the main path, and the same launch through
+   ``ops.mttkrp_local`` (with its unvisited-tile masking) must give the
+   same bits. On mode 0 each kernel must also equal the plain version on
+   the CPU bitwise. A 5-mode ``twitch`` case covers nin = 4. Each kernel
+   and plain version is timed with CUDA events (warm-up, then the median
+   of 20 runs), and so are the main path's whole EC for the mode
    (``ops.mttkrp_local``) and its argument building (``ops.kernel_args``).
    On mode 0 each kernel is also timed at every ring depth of its item
    kernel (2-4 stages), each bitwise equal to the first launch.
@@ -45,8 +46,10 @@ Phases, each of which exits non-zero on failure:
    ``fused``'s, and both must agree with ``sorted``'s to 1e-4 (``sorted``
    regroups the hot rows' sums otherwise than the one-hot variants).
 6. Multi-device path: the same tensor planned for 4 devices with the
-   ``sorted`` preset (prints the ``r`` its auto replication picks, and
-   plans again at r = 2 when that is 1, so that the merge runs), each plan
+   ``sorted`` preset from its store, every shard read into host arrays
+   (``StoreModePartition.materialize``: the in-memory plan, bitwise; prints
+   the ``r`` its auto replication picks, and plans again at r = 2 when
+   that is 1, so that the merge runs), each plan
    compiled on ``cp_mesh(4, r, devices=["cuda:0"] * 4)``: four logical
    devices on ONE card, whose exchange is device-to-device copies in one
    card's memory, not NVLink. (``--cards 4`` puts logical device k on
@@ -70,9 +73,9 @@ Phases, each of which exits non-zero on failure:
    (b) the hot-index tensor of tests/test_schedule_multidevice.py scaled
    25x in nonzeros and mode-0 size (and 5x in modes 1-2, so that its 3 hot
    indices keep 30 % of the nonzeros after duplicates merge), planned
-   ``equal_nnz`` (one group of 4). Each case runs ``"off"`` for 6 sweeps,
-   ``"measure"`` for 4 (factors and fits bitwise those of ``"off"`` after 4)
-   and ``"on"`` for 6 (fits within 1e-4 of ``"off"``, and for (a) of the
+   ``equal_nnz`` (one group of 4). Each case runs ``"off"`` for 4 sweeps,
+   ``"measure"`` for 3 (factors and fits bitwise those of ``"off"`` after 3)
+   and ``"on"`` for 4 (fits within 1e-4 of ``"off"``, and for (a) of the
    one-device run). Counts are set to 0 just before each run and read
    just after; the solver counts each rebalance point's probe launches
    as they run. The probes must have launched ``ec_sorted`` once per mode
@@ -86,24 +89,65 @@ Phases, each of which exits non-zero on failure:
    (so each is covered once), and device 0's shard must give
    ``ec_sorted``'s plain bits on the card. (b) must migrate; (a) records
    whether it did.
-8. Summary: one JSON line ``{"kernels": [...]}`` (``ms``, ``plain_ms`` and
+8. Ref order: the ``ref`` EC (the paper preset's) sums in slot order on
+   the card with no flag set by the caller: the paper preset on its store
+   plan (one device, resident) run twice from the same seed gives the same
+   factor, lam and fit bits after 2 sweeps (the first run goes on to 4,
+   the resident run of phase 10); and on 4 logical devices on phase 6's
+   r = 2 plan, ``schedule.rebalance="measure"`` is bitwise ``"off"`` under
+   the paper preset over 2 sweeps (replicas equal).
+9. Presets: ``api.preset("fused")`` and ``api.preset("sorted")``,
+   unmodified apart from rank 32 and one device. The EC autotuner runs on
+   the card (its cache in the temporary directory): the tuner's seconds,
+   winner and every candidate's ms are printed, the winner's plan is made
+   (the main path's plan when the winner is its geometry, else from the
+   store), and the tuner's counters must show one miss and memo hits for
+   the second plan and the compile. 3 sweeps each; fits within 1e-4 of
+   the main path's fixed-geometry run. Then on phase 6's r = 2 plan, 4
+   logical devices: ``allgather`` and ``overlap`` with
+   ``exchange.autotune_chunk=true``, 2 sweeps each; the tuned chunk and
+   each candidate's ms are printed, and the factors must be ``allgather``'s
+   bits.
+10. Streaming: the ``sorted`` (tile 8, block_p 128) and ``paper`` store
+   plans on one device, under one ``runtime.memory_budget`` sized from the
+   densest padded tile of either plan (the least a split at tile
+   boundaries allows), which must split every mode into at least 3
+   super-shards; ``stream_buffers=2``, spill on, 4 sweeps; then the same
+   lazy plans resident (the paper one is phase 8's run). Fits, lam and
+   factors must be bitwise equal. Then the ``sorted`` store plan for 4
+   devices (auto r) on 4 logical devices, 2 sweeps, streamed against
+   resident, bitwise, replicas too. Per run it prints the super-shards per
+   mode, the window build seconds of sweep 1 and the spill reload seconds
+   after, the host-to-device bytes per sweep, the exposed transfer, the
+   steady sweep ms streamed and resident, and the peak allocations: on one
+   device the streamed peak must stay within the two resident windows
+   (the stream plan's ``resident_bound_bytes``) plus their descriptors,
+   the factors, two mode outputs (the accumulator and the previous
+   mode's, which the sweep keeps for the fit), the fit's one factor-sized
+   product and one EC's measured workspace; on 4 logical devices below
+   the resident peak. ``ec_sorted`` must have
+   launched once per window, device and sweep.
+11. Summary: one JSON line ``{"kernels": [...]}`` (``ms``, ``plain_ms`` and
    ``bound_ms`` summed over the three modes, i.e. one sweep's launches;
    ``launches`` from the main-path run, ``multi_device_launches`` from the
    multi-device path's, ``rebalance_launches`` from the rebalance phase's
    ``"measure"`` and ``"on"`` runs, of which ``rebalance_probe_launches``
-   were counted around the probes), the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``. With ``--out PATH`` every per-mode
-   number also goes to a JSON file.
+   were counted around the probes; ``tuner_launches`` the EC autotuner's
+   candidate runs, ``preset_launches`` the tuned presets' runs and
+   ``stream_launches`` the streamed windows'), the card's name and power
+   limit, and last ``{"ok": true, "device": {...}}``. With ``--out PATH``
+   every per-mode number also goes to a JSON file.
 """
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import resource
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -244,15 +288,19 @@ def ring_depths(name, kern, args, geo, got) -> dict:
     return ms
 
 
-@contextlib.contextmanager
-def slot_order():
-    """CUDA ``index_add_`` in slot order (its deterministic algorithm)."""
+CHUNK_BLOCKS = 16  # _build.CHUNK_BLOCKS, checked against it in main()
+
+
+def short_run_rows(b2t: np.ndarray, tile: int, num_rows: int):
+    """A mask of the output rows whose tile's run is at most
+    ``CHUNK_BLOCKS`` blocks: there every kernel sums in slot order, the
+    ``ref`` EC's order, and must give its bits."""
     import torch
-    torch.use_deterministic_algorithms(True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(False)
+    starts = np.flatnonzero(np.r_[True, b2t[1:] != b2t[:-1], True])
+    mask = np.zeros(num_rows // tile, bool)
+    for a, b in zip(starts[:-1], starts[1:]):
+        mask[b2t[a]] = b - a <= CHUNK_BLOCKS
+    return torch.from_numpy(np.repeat(mask, tile)).cuda()
 
 
 def check_close(name: str, got, ref) -> float:
@@ -282,12 +330,14 @@ def parity(plan, rank: int, *, timed: bool, bitwise_mode: int | None,
         outs = {}
         dev = mttkrp.shard_plan_mode(part, mesh)[0]
         cases = kernel_cases(dev, part, factors, mode)
-        # the semantic oracle: slot-order ref, deterministic on the card
-        with slot_order():
-            slot_ref = ops.mttkrp_local(
-                dev.indices, dev.values, dev.local_rows, dev.block_to_tile,
-                factors, mode=mode, variant="ref", num_rows=part.rows_max,
-                tile=part.tile, block_p=part.block_p)
+        # the semantic oracle: slot-order ref (its index_add_ runs in slot
+        # order on the card without any flag set here)
+        slot_ref = ops.mttkrp_local(
+            dev.indices, dev.values, dev.local_rows, dev.block_to_tile,
+            factors, mode=mode, variant="ref", num_rows=part.rows_max,
+            tile=part.tile, block_p=part.block_p)
+        short = short_run_rows(part.block_to_tile[0], part.tile,
+                               part.rows_max)
         for name, (kern, plain, args, geo, nbytes, flops) in cases.items():
             got = kern(*args, **geo)
             # the same launch through the main path's dispatch, with its
@@ -308,8 +358,7 @@ def parity(plan, rank: int, *, timed: bool, bitwise_mode: int | None,
                 fail(f"{label} {name} mode {mode}: mttkrp_local differs from "
                      f"the wrapper on the same inputs")
             del via
-            with slot_order():
-                ref = plain(*args, **geo)
+            ref = plain(*args, **geo)
             torch.cuda.synchronize()
             err = check_close(f"{label} {name} mode {mode}", got, ref)
             bitwise_on_card = bool(torch.equal(got, ref))
@@ -320,6 +369,10 @@ def parity(plan, rank: int, *, timed: bool, bitwise_mode: int | None,
             if name == "ec_blocked" and not torch.equal(got,
                                                         outs["ec_fused"]):
                 fail(f"{label} ec_blocked mode {mode} differs from ec_fused")
+            if not torch.equal(got[short], slot_ref[short]):
+                fail(f"{label} {name} mode {mode}: differs from the "
+                     f"slot-order ref on a tile whose run is at most "
+                     f"{CHUNK_BLOCKS} blocks")
             d_slot = float((got - slot_ref).abs().max())
             scale = float(slot_ref.abs().max())
             if d_slot > REF_RTOL * scale:
@@ -327,6 +380,7 @@ def parity(plan, rank: int, *, timed: bool, bitwise_mode: int | None,
                      f"{d_slot:.3e} exceeds {REF_RTOL} * max|ref| = "
                      f"{REF_RTOL * scale:.3e}")
             rec = {"mode": mode, "max_abs_err": err,
+                   "short_run_rows_equal_ref": int(short.sum()),
                    "max_abs_ref": float(ref.abs().max()),
                    "bitwise_on_card": bitwise_on_card,
                    "max_abs_diff_slot_order": d_slot,
@@ -560,10 +614,23 @@ def where(mesh) -> str:
             f"peer copies between cards")
 
 
-def multi_device(api, tensor, cfg, one_dev_fits, cards: int) -> dict:
-    """The multi-device path: the same tensor planned for 4 devices (the
-    ``sorted`` preset's auto replication, and r = 2 besides when that picks
-    r = 1), each plan run on 4 logical devices (logical device k on
+def materialized_plan(api, store, cfg):
+    """The store's plan for ``cfg`` with every mode's shards read into host
+    arrays (``StoreModePartition.materialize``): the in-memory plan of the
+    same tensor, bitwise (tests/test_torch_store.py), at the cost of one
+    pass over the chunks per mode and device instead of a sort of the
+    whole tensor."""
+    import dataclasses
+    plan = api.plan(store, cfg)
+    return dataclasses.replace(plan, modes=tuple(p.materialize()
+                                                 for p in plan.modes))
+
+
+def multi_device(api, store, cfg, one_dev_fits, cards: int) -> dict:
+    """The multi-device path: the same tensor planned for 4 devices from
+    its store (the ``sorted`` preset's auto replication, and r = 2 besides
+    when that picks r = 1; both materialized, see
+    :func:`materialized_plan`), each plan run on 4 logical devices (logical device k on
     ``cuda:0`` or, with 4 cards, on ``cuda:k``) with every exchange
     schedule, and ``ec_fused``/``ec_blocked`` for two sweeps."""
     import torch
@@ -572,7 +639,7 @@ def multi_device(api, tensor, cfg, one_dev_fits, cards: int) -> dict:
     mcfg = cfg.with_overrides({"runtime.num_devices": MD_DEVICES,
                                "partition.replication": None})
     t0 = time.perf_counter()
-    mplan = api.plan(tensor, mcfg)
+    mplan = materialized_plan(api, store, mcfg)
     plans = [(mcfg, mplan, time.perf_counter() - t0)]
     r_auto = mplan.modes[0].r
     print(f"auto replication for {MD_DEVICES} devices picked r={r_auto} "
@@ -580,7 +647,7 @@ def multi_device(api, tensor, cfg, one_dev_fits, cards: int) -> dict:
     if r_auto == 1:
         rcfg = mcfg.with_overrides({"partition.replication": 2})
         t0 = time.perf_counter()
-        plans.append((rcfg, api.plan(tensor, rcfg),
+        plans.append((rcfg, materialized_plan(api, store, rcfg),
                       time.perf_counter() - t0))
         print(f"planned again at r=2 so that the merge runs "
               f"(plan {plans[1][2]:.1f} s)", flush=True)
@@ -605,8 +672,7 @@ def multi_device(api, tensor, cfg, one_dev_fits, cards: int) -> dict:
                                              devices=mesh.devices[:1])]
         args, geo = kernel_cases(dev0, part, f0, 0)["ec_sorted"][2:4]
         got = mttkrp_sorted.ec_sorted(*args, **geo)
-        with slot_order():
-            ref = mttkrp_sorted.ec_sorted_plain(*args, **geo)
+        ref = mttkrp_sorted.ec_sorted_plain(*args, **geo)
         if not torch.equal(got, ref):
             fail(f"r={r}: ec_sorted on device 0's shard of mode 0 is not "
                  f"bitwise equal to its deterministic plain version")
@@ -666,8 +732,8 @@ def multi_device(api, tensor, cfg, one_dev_fits, cards: int) -> dict:
 
 RB_SETTINGS = {"schedule.cadence": 1, "schedule.imbalance_threshold": 1.1,
                "schedule.migration_budget": 0.4, "schedule.probe_repeats": 2}
-RB_MEASURE_SWEEPS = 4
-RB_SWEEPS = 6          # the "off" and "on" runs
+RB_MEASURE_SWEEPS = 3
+RB_SWEEPS = 4          # the "off" and "on" runs
 HOT_NNZ = 2_000_000
 HOT_SHAPE = (1_638_400, 1280, 1280)
 
@@ -852,8 +918,7 @@ def rebalance_case(api, plan, cfg, mesh, label: str, *, must_migrate: bool,
         f0 = [f[0] for f in solver.state.factors]
         args, geo = kernel_cases(dev0, part, f0, mode)["ec_sorted"][2:4]
         got = mttkrp_sorted.ec_sorted(*args, **geo)
-        with slot_order():
-            ref = mttkrp_sorted.ec_sorted_plain(*args, **geo)
+        ref = mttkrp_sorted.ec_sorted_plain(*args, **geo)
         if not torch.equal(got, ref):
             fail(f"{label} mode {mode}: ec_sorted on device 0's migrated "
                  f"shard is not bitwise equal to its plain version")
@@ -916,6 +981,500 @@ def rebalance_phase(api, cfg, kept, one_dev_fits, cards: int) -> dict:
     return out
 
 
+STREAM_SWEEPS = 4      # each streamed run, and the resident run beside it
+MD_STREAM_SWEEPS = 2   # the 4-logical-device streamed and resident runs
+REF_REPEAT_SWEEPS = 2  # the second paper run, held against the first's
+PAPER_MD_SWEEPS = 2    # paper "off" and "measure" on 4 logical devices
+PRESET_SWEEPS = 3
+MIN_SHARDS = 3         # super-shards per mode the one-device budget forces
+
+
+def all_cards(mesh) -> list[int]:
+    return sorted({d.index for d in mesh.devices})
+
+
+def same_result(a, b) -> bool:
+    """Fits, factors and lam of two CPResults, bitwise."""
+    return (a.fits == b.fits and np.array_equal(a.lam, b.lam) and all(
+        np.array_equal(x, y) for x, y in zip(a.factors, b.factors)))
+
+
+def replicas_equal(state) -> bool:
+    import torch
+    return all(torch.equal(reps[0], x.to(reps[0].device))
+               for reps in state.factors + state.grams
+               + [state.lam, state.replica_fits] for x in reps[1:])
+
+
+def store_phase(tensor, tmp: str):
+    """The end of phase 3: the data tensor written to a tensor store with
+    the port's writer."""
+    from repro_torch.store import TensorStore, write_store_from_coo
+    path = os.path.join(tmp, "amazon.store")
+    t0 = time.perf_counter()
+    write_store_from_coo(tensor, path)
+    write_s = time.perf_counter() - t0
+    store = TensorStore(path)
+    size = sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+    print(f"store: {store.nnz} nonzeros in {store.num_chunks} chunks of "
+          f"{store.chunk_nnz}, {size / 2**20:.1f} MiB on disk, written in "
+          f"{write_s:.1f} s ({store.nnz / write_s / 1e6:.2f} M nnz/s)",
+          flush=True)
+    return store, {"write_s": write_s, "disk_bytes": size,
+                   "chunks": store.num_chunks, "chunk_nnz": store.chunk_nnz}
+
+
+def plan_store(api, store, cfg, label: str):
+    """``api.plan`` of the store: manifest statistics only, no chunk read
+    (checked)."""
+    store.reset_access_stats()
+    t0 = time.perf_counter()
+    plan = api.plan(store, cfg)
+    plan_s = time.perf_counter() - t0
+    if store.access_stats["chunk_reads"]:
+        fail(f"{label}: planning from the store read "
+             f"{store.access_stats['chunk_reads']} chunks")
+    print(f"{label}: planned from the store in {plan_s:.2f} s (0 chunk "
+          f"reads); r={plan.modes[0].r} tile={plan.modes[0].tile} "
+          f"block_p={plan.modes[0].block_p} layout="
+          f"{plan.modes[0].block_layout}", flush=True)
+    return plan, plan_s
+
+
+def timed_run(api, plan, cfg, sweeps: int, label: str, *, mesh=None,
+              kernel: str | None = None, snap_at: int | None = None):
+    """Compile and run ``sweeps`` sweeps, one at a time: counts set to 0
+    after the compile and read after the last sweep; the peak allocation
+    above what was allocated before the compile. Returns the result, the
+    per-sweep wall seconds, the launches, the peak and the open solver
+    (and with ``snap_at``, the result after that sweep as well)."""
+    import torch
+    from repro_torch.kernels import _build
+    kw = {"mesh": mesh} if mesh is not None else {}
+    sync_all()
+    torch.cuda.empty_cache()
+    cards = all_cards(mesh) if mesh is not None else [0]
+    base = sum(torch.cuda.memory_allocated(c) for c in cards)
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    t0 = time.perf_counter()
+    solver = api.compile(plan, cfg, **kw)
+    sync_all()
+    compile_s = time.perf_counter() - t0
+    _build.reset_launch_counts()
+    wall = []
+    for k in range(1, sweeps + 1):  # run() resumes: one more sweep each
+        t0 = time.perf_counter()
+        res = solver.run(k)
+        sync_all()
+        wall.append(time.perf_counter() - t0)
+        if k == snap_at:
+            snap = res
+    counts = dict(_build.LAUNCHES)
+    peak = max(torch.cuda.max_memory_allocated(c) for c in cards) - \
+        (base if len(cards) == 1 else 0)
+    fits = np.asarray(res.fits)
+    if fits.shape != (sweeps,) or not np.isfinite(fits).all():
+        fail(f"{label}: fits {fits} are not {sweeps} finite values")
+    if kernel is not None and counts[kernel] == 0:
+        fail(f"{label}: {kernel} was never launched")
+    print(f"{label}: compile {compile_s:.2f} s; sweep wall times "
+          f"{[round(w, 4) for w in wall]} s; fits "
+          f"{[round(float(f), 6) for f in fits]}; launches {counts}; peak "
+          f"alloc {peak / 2**20:.1f} MiB", flush=True)
+    if snap_at is not None:
+        return res, wall, counts, peak, compile_s, solver, snap
+    return res, wall, counts, peak, compile_s, solver
+
+
+def ref_order_phase(api, store, kept, cards: int):
+    """Phase 8: the ``ref`` EC (the paper preset's) in slot order on the
+    card, with no flag set by the caller: two runs of the paper preset on
+    its store plan give the same bits, and ``"measure"`` is bitwise
+    ``"off"`` under the paper preset on 4 logical devices."""
+    import torch
+    from repro_torch.core import mttkrp
+    from repro_torch.kernels import _build
+    cfg = api.preset("paper", {"rank": 32, "runtime.num_devices": 1,
+                               "runtime.tol": 0.0})
+    plan, plan_s = plan_store(api, store, cfg, "paper (1 device)")
+    res, wall, counts, peak, compile_s, solver, snap = timed_run(
+        api, plan, cfg, STREAM_SWEEPS, "paper resident, run 1",
+        snap_at=REF_REPEAT_SWEEPS)
+    if any(counts.values()):
+        fail(f"the paper preset launched {counts}: its EC is ref")
+    solver.reset()
+    t0 = time.perf_counter()
+    res2 = solver.run(REF_REPEAT_SWEEPS)
+    sync_all()
+    run2_s = time.perf_counter() - t0
+    solver.close()
+    del solver
+    if torch.are_deterministic_algorithms_enabled():
+        fail("a run left torch.use_deterministic_algorithms on")
+    if not same_result(snap, res2):
+        fail("two paper runs on one device gave different bits")
+    print(f"paper: run 2 ({REF_REPEAT_SWEEPS} sweeps in {run2_s:.2f} s) "
+          f"gives run 1's factor, lam and fit bits after "
+          f"{REF_REPEAT_SWEEPS} sweeps", flush=True)
+    out = {"plan_s": plan_s, "compile_s": compile_s, "sweep_wall_s": wall,
+           "fits": list(res.fits), "peak_alloc_bytes": peak,
+           "two_runs_bitwise": True}
+    acfg, aplan = kept
+    r = aplan.modes[0].r
+    mesh = mttkrp.cp_mesh(MD_DEVICES, r, devices=[
+        f"cuda:{k % cards}" for k in range(MD_DEVICES)])
+    pcfg = api.preset("paper", {"rank": 32, "runtime.tol": 0.0,
+                                "runtime.num_devices": MD_DEVICES,
+                                **RB_SETTINGS})
+    runs = {}
+    for mode in ("off", "measure"):
+        with api.compile(aplan, pcfg.with_overrides(
+                {"schedule.rebalance": mode}), mesh=mesh) as solver:
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            runs[mode] = solver.run(PAPER_MD_SWEEPS)
+            sync_all()
+            run_s = time.perf_counter() - t0
+            if any(_build.LAUNCHES.values()):
+                fail(f"paper {mode}: launched {dict(_build.LAUNCHES)}")
+            if not replicas_equal(solver.state):
+                fail(f"paper {mode}: the replicas hold different bits")
+            points = len(solver.schedule_events)
+        print(f"paper r={r} {mode} on {where(mesh)}: {PAPER_MD_SWEEPS} "
+              f"sweeps in {run_s:.2f} s, {points} rebalance points; fits "
+              f"{[round(float(f), 6) for f in runs[mode].fits]}",
+              flush=True)
+    if not same_result(runs["measure"], runs["off"]):
+        fail("paper: measure-only factors or fits are not off's bits")
+    print(f"paper r={r}: measure is bitwise off over {PAPER_MD_SWEEPS} "
+          f"sweeps", flush=True)
+    out["measure_bitwise_off"] = True
+    out["md_fits"] = list(runs["off"].fits)
+    resident = {"res": res, "wall": wall, "peak": peak,
+                "compile_s": compile_s}
+    return plan, resident, out
+
+
+def xchg_timings(rows_key: str):
+    from repro_torch.kernels import autotune
+    with open(autotune.cache_path()) as f:
+        cache = json.load(f)
+    return next(v for k, v in cache.items() if k.startswith(rows_key))
+
+
+def presets_phase(api, store, plan_main, main_fits, kept, cards: int):
+    """Phase 9: the ``fused`` and ``sorted`` presets, unmodified: the EC
+    autotuner on the card picks the geometry and the ring depth; then the
+    overlap chunk autotuner on 4 logical devices."""
+    from repro_torch.api.planning import resolve_geometry
+    from repro_torch.core import mttkrp
+    from repro_torch.kernels import _build, autotune
+    out, tuner_launches = {}, {k: 0 for k in KERNELS}
+    for name in ("fused", "sorted"):
+        cfg = api.preset(name, {"rank": 32, "runtime.num_devices": 1,
+                                "runtime.tol": 0.0})
+        autotune.reset_counters()
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        tile, block_p = resolve_geometry(plan_main.nmodes, cfg)
+        tune_s = time.perf_counter() - t0
+        for k, v in _build.LAUNCHES.items():
+            tuner_launches[k] += v
+        tuned = autotune.autotune_ec(plan_main.nmodes, cfg.rank,
+                                     variant=name)
+        grid_ms = {k: 1e3 * v for k, v in tuned.timings.items()}
+        print(f"{name}: tuner {tune_s:.2f} s, winner tile={tuned.tile} "
+              f"block_p={tuned.block_p} num_buffers={tuned.num_buffers}; "
+              f"grid ms {json.dumps({k: round(v, 4) for k, v in grid_ms.items()})}; "
+              f"launches {dict(_build.LAUNCHES)}", flush=True)
+        layout = cfg.partition.layout
+        if (tile, block_p, layout) == (plan_main.modes[0].tile,
+                                       plan_main.modes[0].block_p,
+                                       plan_main.modes[0].block_layout):
+            plan, plan_s, how = plan_main, 0.0, "the main path's plan"
+            resolve_geometry(plan_main.nmodes, cfg)  # a second plan's tuning
+        else:
+            plan, plan_s = plan_store(api, store, cfg, f"{name} preset")
+            how = "planned from the store"
+        res, wall, counts, peak, compile_s, solver = timed_run(
+            api, plan, cfg, PRESET_SWEEPS, f"{name} preset ({how})",
+            kernel=f"ec_{name}")
+        solver.close()
+        del solver
+        memo = dict(autotune.COUNTERS)
+        if memo["misses"] != 1 or memo["memo_hits"] < 2:
+            fail(f"{name}: the tuner answered {memo}; expected one miss and "
+                 f"memo hits for the second plan and the compile")
+        diff = float(np.abs(np.asarray(res.fits)
+                            - main_fits[:PRESET_SWEEPS]).max())
+        if diff > FIT_TOL:
+            fail(f"{name} preset fits {res.fits} differ from the fixed "
+                 f"geometry's {main_fits[:PRESET_SWEEPS]} by {diff:.2e}")
+        print(f"{name}: tuner counters {memo} (the second plan and the "
+              f"compile were memo hits); steady sweep "
+              f"{1e3 * float(np.median(wall[1:])):.2f} ms; fits within "
+              f"{diff:.2e} of the fixed-geometry run", flush=True)
+        # the grid once more: the spread over the grid against the
+        # candidate-to-candidate change between the two sweeps of it
+        again = autotune.autotune_ec(plan_main.nmodes, cfg.rank,
+                                     variant=name, force=True)
+        ratio = [again.timings[k] / tuned.timings[k] for k in tuned.timings]
+        spread = max(tuned.timings.values()) / min(tuned.timings.values())
+        print(f"{name}: grid spread (slowest / fastest) {spread:.3f}; a "
+              f"second sweep of the grid picks tile={again.tile} "
+              f"block_p={again.block_p} num_buffers={again.num_buffers}, "
+              f"each candidate at {min(ratio):.3f}-{max(ratio):.3f}x its "
+              f"first time", flush=True)
+        out[name] = {"tune_s": tune_s, "winner": [tuned.tile, tuned.block_p,
+                                                   tuned.num_buffers],
+                     "grid_spread": spread,
+                     "second_winner": [again.tile, again.block_p,
+                                       again.num_buffers],
+                     "second_grid_ms": {k: 1e3 * v
+                                        for k, v in again.timings.items()},
+                     "grid_ms": grid_ms, "counters": memo, "plan": how,
+                     "plan_s": plan_s, "compile_s": compile_s,
+                     "sweep_wall_s": wall, "fits": list(res.fits),
+                     "max_abs_diff_fixed_fits": diff,
+                     "launches": counts[f"ec_{name}"],
+                     "peak_alloc_bytes": peak}
+    out["tuner_launches"] = tuner_launches
+    acfg, aplan = kept
+    r = aplan.modes[0].r
+    mesh = mttkrp.cp_mesh(MD_DEVICES, r, devices=[
+        f"cuda:{k % cards}" for k in range(MD_DEVICES)])
+    recs, snaps = {}, {}
+    for ename, ov in (("allgather", {"exchange.variant": "allgather"}),
+                      ("overlap_tuned", {"exchange.variant": "overlap",
+                                         "exchange.autotune_chunk": True})):
+        recs[ename], snaps[ename] = multi_device_run(
+            api, aplan, acfg.with_overrides(ov), mesh, MD_AB_SWEEPS,
+            f"presets r={r} {ename}")
+    if snaps["overlap_tuned"]["fits"] != snaps["allgather"]["fits"] or \
+            not all(np.array_equal(a, b) for a, b in zip(
+                snaps["overlap_tuned"]["factors"],
+                snaps["allgather"]["factors"])):
+        fail("overlap with a tuned chunk: factors are not allgather's bits")
+    chunk = recs["overlap_tuned"]["exchange"]["chunk_rows"]
+    entry = xchg_timings(f"xchg_overlap_rows"
+                         f"{max(p.rows_max // p.r for p in aplan.modes)}_")
+    print(f"overlap chunk tuner on {where(mesh)}: chunk_rows={chunk}; "
+          f"ms per candidate "
+          f"{ {k: round(1e3 * v, 4) for k, v in entry['timings'].items()} }"
+          f"; factors bitwise allgather's", flush=True)
+    out["overlap"] = {"chunk_rows": chunk, "timings_s": entry["timings"],
+                      "runs": recs}
+    return out
+
+
+def stream_budget(parts, min_slots: int = 0, buffers: int = 2) -> int:
+    """The per-device budget whose super-shards hold the densest padded
+    tile of any of ``parts`` (the least a tile-boundary split allows) or
+    ``min_slots``, whichever is more, plus one block of slack."""
+    from repro_torch.store import budget_slot_cap, stream_shard_nbytes
+    nmodes = parts[0].nmodes
+    bp = parts[0].block_p
+    cap = max(min_slots, max(int(p._dev_tc_pad.max()) for p in parts))
+    cap = -(-cap // bp) * bp
+    n_tiles = max(p.layout.n_tiles for p in parts)
+    budget = buffers * (stream_shard_nbytes(cap, cap // bp, n_tiles, nmodes)
+                        + (4 * nmodes + 9) * bp)
+    for p in parts:
+        if budget_slot_cap(budget, nmodes=nmodes, n_tiles=p.layout.n_tiles,
+                           block_p=bp, buffers=buffers) < cap:
+            fail("stream_budget: the budget does not hold its own cap")
+    return budget
+
+
+def ec_workspace(solver, part, rank: int) -> int:
+    """Bytes one super-shard's EC allocates beyond its inputs on device 0
+    (the kernel's argument building, the work-item buffers, its output and
+    the masked output), measured once on window (0, 0)."""
+    import torch
+    from repro_torch.kernels import ops
+    dev = solver.streamer.get(0, 0)[0]
+    facs = [f[0] for f in solver.state.factors]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = ops.mttkrp_local(
+        dev.indices, dev.values, dev.local_rows, dev.block_to_tile, facs,
+        mode=0, num_rows=part.rows_max, tile=part.tile, block_p=part.block_p,
+        tile_mask=dev.tile_visited, seg_starts=dev.seg_starts,
+        seg_rows=dev.seg_rows, **solver._kernel_kw)
+    torch.cuda.synchronize()
+    del out
+    return torch.cuda.max_memory_allocated() - before
+
+
+def stream_case(api, plan, cfg, budget: int, sweeps: int, label: str, *,
+                resident=None, mesh=None, kernel: str | None = None) -> dict:
+    """One streamed run of a store plan and the resident run of the same
+    plan (``resident``: one already made): fits and factors bitwise, and on
+    4 logical devices every replica's bits. Prints the window build and
+    spill reload seconds, the host-to-device bytes per sweep, the exposed
+    transfer, the steady sweeps and the peak allocations."""
+    import torch
+    from repro_torch.store import split_mode_super_shards
+    scfg = cfg.with_overrides({"runtime.streaming": True,
+                               "runtime.memory_budget": budget,
+                               "runtime.stream_buffers": 2,
+                               "runtime.stream_spill": True})
+    m = plan.num_devices
+    sps = [split_mode_super_shards(p, budget) for p in plan.modes]
+    shards = [sp.num_shards for sp in sps]
+    print(f"{label}: budget {budget} B ({budget / 2**20:.1f} MiB) per "
+          f"device; super-shards per mode {shards}; shard bytes per mode "
+          f"{[sp.shard_bytes for sp in sps]}; resident shard bytes per mode "
+          f"{[store_resident_bytes(p) for p in plan.modes]}", flush=True)
+    if m == 1 and min(shards) < MIN_SHARDS:
+        fail(f"{label}: the budget splits a mode into fewer than "
+             f"{MIN_SHARDS} super-shards: {shards}")
+    if min(shards) < 2:
+        fail(f"{label}: a mode is not split: {shards}")
+    sres, swall, scounts, speak, scompile, solver = timed_run(
+        api, plan, scfg, sweeps, f"{label} streamed", mesh=mesh,
+        kernel=kernel)
+    report = solver.overlap_report()
+    if kernel is not None and scounts[kernel] != sweeps * sum(shards) * m:
+        fail(f"{label}: {kernel} launched {scounts[kernel]} times, expected "
+             f"{sweeps} sweeps x {sum(shards)} windows x {m} devices")
+    if m > 1 and not replicas_equal(solver.state):
+        fail(f"{label}: the streamed replicas hold different bits")
+    ws = ec_workspace(solver, plan.modes[0], cfg.rank) if m == 1 else None
+    solver.close()
+    del solver
+    if report["peak_resident_bytes"] > budget:
+        fail(f"{label}: {report['peak_resident_bytes']} B of windows were "
+             f"resident at once, over the budget {budget} B")
+    if resident is None:
+        rres, rwall, _, rpeak, rcompile, rsolver = timed_run(
+            api, plan, cfg, sweeps, f"{label} resident", mesh=mesh,
+            kernel=kernel)
+        if m > 1 and not replicas_equal(rsolver.state):
+            fail(f"{label}: the resident replicas hold different bits")
+        rsolver.close()
+        del rsolver
+    else:
+        rres, rwall, rpeak, rcompile = resident
+    torch.cuda.empty_cache()
+    if not same_result(sres, rres):
+        fail(f"{label}: streamed fits or factors are not the resident "
+             f"run's bits ({sres.fits} vs {rres.fits})")
+    events = report["per_sweep"]
+    sweep_bytes = sum(n * sp.shard_bytes for n, sp in zip(shards, sps))
+    rank = cfg.rank
+    factor_bytes = sum(p.padded_rows for p in plan.modes) * rank * 4 * m
+    # the accumulator, and the previous mode's output the sweep keeps for
+    # the fit until the next mode's finish replaces it
+    acc_bytes = 2 * max(p.rows_max for p in plan.modes) * rank * 4 * m
+    # the fit's product of the last mode's output and factor
+    fit_bytes = max(p.padded_rows for p in plan.modes) * rank * 4 * m
+    nb = max(sp.nblocks for sp in sps)
+    desc_bytes = 2 * nb * (2 * plan.modes[0].tile + 3) * 4 * m
+    rec = {"budget_bytes": budget, "shards_per_mode": shards,
+           "shard_bytes": [sp.shard_bytes for sp in sps],
+           "resident_bound_bytes": max(sp.resident_bound_bytes()
+                                       for sp in sps),
+           "compile_s": scompile, "resident_compile_s": rcompile,
+           "sweep_wall_s": swall, "resident_sweep_wall_s": rwall,
+           "steady_ms": 1e3 * float(np.median(swall[1:])),
+           "resident_steady_ms": 1e3 * float(np.median(rwall[1:])),
+           "build_s_sweep1": events[0]["transfer_s"],
+           "reload_s_later": [e["transfer_s"] for e in events[1:]],
+           "exposed_ms": [1e3 * e["exposed_s"] for e in events],
+           "h2d_bytes_per_sweep_per_device": sweep_bytes,
+           "bytes_streamed_per_sweep": [e["bytes_streamed"] for e in events],
+           "peak_alloc_bytes": speak, "resident_peak_alloc_bytes": rpeak,
+           "factor_bytes": factor_bytes, "acc_bytes": acc_bytes,
+           "fit_bytes": fit_bytes,
+           "descriptor_bytes": desc_bytes, "ec_workspace_bytes": ws,
+           "spill_hits": report["spill_hits"],
+           "spill_saves": report["spill_saves"],
+           "peak_resident_window_bytes": report["peak_resident_bytes"],
+           "fits": list(sres.fits), "launches": scounts}
+    if m == 1:
+        bound = (rec["resident_bound_bytes"] + desc_bytes + factor_bytes
+                 + acc_bytes + fit_bytes + ws + 2**20)
+        rec["peak_bound_bytes"] = bound
+        if speak > bound:
+            fail(f"{label}: streamed peak {speak} B exceeds the windows' "
+                 f"bound {rec['resident_bound_bytes']} + descriptors "
+                 f"{desc_bytes} + factors {factor_bytes} + two outputs "
+                 f"{acc_bytes} + the fit's product {fit_bytes} + one EC's "
+                 f"workspace {ws} + 1 MiB = {bound} B")
+    elif speak >= rpeak:
+        fail(f"{label}: streamed peak {speak} B is not below the resident "
+             f"run's {rpeak} B")
+    print(f"{label}: streamed = resident bitwise over {sweeps} sweeps"
+          + (" (every replica too)" if m > 1 else "")
+          + f"; window builds {rec['build_s_sweep1']:.2f} s in sweep 1, "
+          f"spill reloads {[round(x, 2) for x in rec['reload_s_later']]} s "
+          f"after; H2D {sweep_bytes / 2**20:.1f} MiB per sweep and device "
+          f"(counted {[round(b / 2**20, 1) for b in rec['bytes_streamed_per_sweep']]}"
+          f" MiB); exposed transfer ms "
+          f"{[round(x, 1) for x in rec['exposed_ms']]}; steady sweep "
+          f"{rec['steady_ms']:.1f} ms streamed, "
+          f"{rec['resident_steady_ms']:.1f} ms resident; peak alloc "
+          f"{speak / 2**20:.1f} MiB streamed"
+          + (f" (bound {rec['peak_bound_bytes'] / 2**20:.1f} MiB: windows "
+             f"{rec['resident_bound_bytes'] / 2**20:.1f} + factors "
+             f"{factor_bytes / 2**20:.1f} + two outputs "
+             f"{acc_bytes / 2**20:.1f} + fit product {fit_bytes / 2**20:.1f}"
+             f" + EC workspace {ws / 2**20:.1f} + "
+             f"descriptors {desc_bytes / 2**20:.1f})" if m == 1 else "")
+          + f", {rpeak / 2**20:.1f} MiB resident", flush=True)
+    return rec
+
+
+def store_resident_bytes(part) -> int:
+    from repro_torch.store import resident_shard_nbytes
+    return resident_shard_nbytes(part, part.nmodes)
+
+
+def streaming_phase(api, store, paper_plan, paper_res, cards: int) -> dict:
+    """Phase 10: epoch streaming of the store plans under a budget that
+    splits every mode into at least ``MIN_SHARDS`` super-shards."""
+    from repro_torch.core import mttkrp
+    out = {}
+    scfg = api.preset("sorted", {"rank": 32, "kernel.autotune": False,
+                                 "partition.tile": 8,
+                                 "partition.block_p": 128,
+                                 "runtime.num_devices": 1,
+                                 "runtime.tol": 0.0})
+    splan, splan_s = plan_store(api, store, scfg, "sorted (1 device)")
+    pcfg = api.preset("paper", {"rank": 32, "runtime.num_devices": 1,
+                                "runtime.tol": 0.0})
+    total = max(p.nnz_max for p in splan.modes + paper_plan.modes)
+    budget = stream_budget(list(splan.modes) + list(paper_plan.modes),
+                           min_slots=0)
+    out["sorted"] = stream_case(api, splan, scfg, budget, STREAM_SWEEPS,
+                                "stream sorted", kernel="ec_sorted")
+    out["sorted"]["plan_s"] = splan_s
+    del splan
+    out["paper"] = stream_case(
+        api, paper_plan, pcfg, budget, STREAM_SWEEPS, "stream paper",
+        resident=(paper_res["res"], paper_res["wall"], paper_res["peak"],
+                  paper_res["compile_s"]))
+    out["budget_over_nnz_max"] = budget / total
+    mcfg = scfg.with_overrides({"runtime.num_devices": MD_DEVICES,
+                                "partition.replication": None})
+    mplan, mplan_s = plan_store(api, store, mcfg,
+                                f"sorted ({MD_DEVICES} devices)")
+    r = mplan.modes[0].r
+    mesh = mttkrp.cp_mesh(MD_DEVICES, r, devices=[
+        f"cuda:{k % cards}" for k in range(MD_DEVICES)])
+    mbudget = stream_budget(mplan.modes)
+    print(f"-- {where(mesh)}", flush=True)
+    out["md"] = stream_case(api, mplan, mcfg, mbudget, MD_STREAM_SWEEPS,
+                            f"stream sorted r={r} x{MD_DEVICES}",
+                            mesh=mesh, kernel="ec_sorted")
+    out["md"].update(plan_s=mplan_s, r=r)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=3e-2,
@@ -940,7 +1499,9 @@ def main() -> None:
     sys.path.insert(0, os.path.join(HERE, "src"))
     import repro_torch.api as api
     from repro_torch.kernels import _build
-    from repro_torch.sparse.io import make_profile_tensor
+    if _build.CHUNK_BLOCKS != CHUNK_BLOCKS:
+        fail(f"CHUNK_BLOCKS is {_build.CHUNK_BLOCKS} in the kernels, "
+             f"{CHUNK_BLOCKS} here")
 
     phase("build")
     t0 = time.perf_counter()
@@ -950,6 +1511,20 @@ def main() -> None:
         for line in log.splitlines():
             if any(k in line for k in ("registers", "spill", "Compiling")):
                 print(f"  [{name}] {line.strip()}")
+
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-")
+    try:
+        run_phases(args, api, kind, smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def run_phases(args, api, kind: str, smi: str, tmp: str) -> None:
+    import torch
+    from repro_torch.kernels import _build, autotune
+    from repro_torch.sparse.io import make_profile_tensor
+    # the tuners' winners go to a file of this run, not to ~/.cache
+    os.environ[autotune.ENV_CACHE] = os.path.join(tmp, "autotune.json")
 
     phase("data")
     cfg = api.preset("sorted", {
@@ -979,6 +1554,7 @@ def main() -> None:
         if items[d][1] > _build.CHUNK_BLOCKS:
             fail(f"mode {d}: a work item of {items[d][1]} blocks exceeds "
                  f"CHUNK_BLOCKS = {_build.CHUNK_BLOCKS}")
+    store, st = store_phase(tensor, tmp)
 
     phase("kernel parity")
     recs = parity(plan, cfg.rank, timed=True, bitwise_mode=0, label="amazon")
@@ -1023,7 +1599,7 @@ def main() -> None:
              f"{vfits_of['fused']}")
 
     phase("multi-device path")
-    md, kept = multi_device(api, tensor, cfg, fits, args.cards)
+    md, kept = multi_device(api, store, cfg, fits, args.cards)
     md_launches = {name: sum(run["launches"] for p in md["plans"]
                              for run in p["runs"].values()
                              if f"ec_{run['variant']}" == name)
@@ -1031,9 +1607,21 @@ def main() -> None:
 
     phase("rebalance")
     rb = rebalance_phase(api, cfg, kept, fits, args.cards)
-    del kept
     rb_runs = [rb[c][m] for c in ("amazon", "hot_index")
                for m in ("measure", "on")]
+
+    phase("ref order")
+    paper_plan, paper_res, ref_rec = ref_order_phase(api, store, kept,
+                                                     args.cards)
+
+    phase("presets")
+    presets = presets_phase(api, store, plan, fits, kept, args.cards)
+    del kept
+
+    phase("streaming")
+    stream = streaming_phase(api, store, paper_plan, paper_res,
+                             args.cards)
+    del paper_plan, paper_res, store
 
     phase("summary")
     kernels = []
@@ -1050,6 +1638,15 @@ def main() -> None:
             "rebalance_probe_launches": sum(r["probe_launches"]
                                             for r in rb_runs)
             if name == "ec_sorted" else 0,
+            # the EC autotuner's candidate runs (presets phase), and the
+            # fused and sorted presets' runs with the tuned geometry
+            "tuner_launches": presets["tuner_launches"][name],
+            "preset_launches": sum(presets[p]["launches"]
+                                   for p in ("fused", "sorted")
+                                   if f"ec_{p}" == name),
+            # every window of the streamed runs (one and four devices)
+            "stream_launches": sum(stream[c]["launches"][name]
+                                   for c in ("sorted", "paper", "md")),
             "max_abs_err": max(x["max_abs_err"] for x in r),
             "ms": sum(x["ms"] for x in r),
             "plain_ms": sum(x["plain_ms"] for x in r),
@@ -1076,6 +1673,8 @@ def main() -> None:
               "ab_fits": {k: v.tolist() for k, v in vfits_of.items()},
               "sweep_wall_s": walls,
               "per_mode": recs, "multi_device": md, "rebalance": rb,
+              "store": st, "ref_order": ref_rec, "presets": presets,
+              "streaming": stream,
               "kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -2,7 +2,7 @@
 
     import repro_torch.api as api
 
-    cfg    = api.preset("sorted", {"kernel.autotune": False})
+    cfg    = api.preset("sorted")                   # autotuned on the card
     plan   = api.plan(tensor, cfg)                  # host preprocessing
     solver = api.compile(plan, cfg)                 # shards on the card(s)
     result = solver.run(iters=10)                   # CPResult
@@ -12,7 +12,10 @@ cuda:M-1``, or onto an explicit mesh:
 ``api.compile(plan, cfg, mesh=cp_mesh(M, r, devices=["cuda:0"] * M))``
 (``repro_torch.core.mttkrp.cp_mesh``) puts the M logical devices on one
 card. ``api.compile(plan, cfg, device="cpu")`` runs the same path on the
-CPU with the kernels' plain PyTorch versions.
+CPU with the kernels' plain PyTorch versions (pass ``device="cpu"`` to
+``api.plan`` too when the config autotunes). ``api.plan`` also takes an
+out-of-core :class:`~repro_torch.store.TensorStore`, whose plan runs
+resident or, with ``runtime.streaming``, in budget-sized super-shards.
 """
 from repro_torch.api.config import (DecomposeConfig, ExchangeConfig,
                                     KernelConfig, PartitionConfig, PRESETS,

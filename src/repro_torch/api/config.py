@@ -3,9 +3,9 @@
 The port's copy of the reference package's ``api/config.py``: the same five
 sections, fields, defaults, presets and dotted overrides, so a config
 round-trips through JSON between the two packages. Sections the port does
-not run yet keep their fields; ``api.plan`` and ``api.compile`` raise
+not run yet keep their fields; ``api.compile`` raises
 ``NotImplementedError`` naming the ROADMAP item when a config asks for one
-of them (streaming, checkpointing, tracing, the autotuners).
+of them (checkpointing, tracing).
 
 A :class:`DecomposeConfig` is a frozen composition of five orthogonal
 sub-configs, mirroring the stages of the AMPED pipeline:
@@ -136,10 +136,14 @@ class KernelConfig:
         from repro_torch.kernels import ops as kops
         return kops.resolve_variant(self.variant, self.use_kernel)
 
-    def mttkrp_kwargs(self) -> dict:
-        """Kwargs for ``make_mttkrp_fn``/``mttkrp_local``, resolved once."""
+    def mttkrp_kwargs(self, *, nmodes: int | None = None,
+                      rank: int | None = None, device=None) -> dict:
+        """Kwargs for ``make_mttkrp_fn``/``mttkrp_local``, resolved once.
+        Pass ``nmodes``/``rank`` so ``autotune=True`` can pick up the tuned
+        ``num_buffers`` (tuned on ``device``; ``None`` is the card)."""
         from repro_torch.kernels import ops as kops
-        return kops.kernel_kwargs_from_config(self)
+        return kops.kernel_kwargs_from_config(self, nmodes=nmodes, rank=rank,
+                                              device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,8 +159,8 @@ class ExchangeConfig:
       * ``"ring"``      — the paper's explicit Algorithm-3 ring.
       * ``"overlap"``   — the ring chunked by rows, chunk k+1's rounds
         enqueued before chunk k's blocks are written (``chunk_rows`` sets
-        the chunk size, ``None`` a default split; ``autotune_chunk`` asks
-        for the chunk autotuner, which is not ported and raises).
+        the chunk size, ``None`` a default split; ``autotune_chunk`` lets
+        the chunk autotuner pick it, :mod:`repro_torch.comm.autotune`).
 
     ``merge`` selects the intra-group reduce for replication r>1
     (``"psum_scatter"`` — a reduce-scatter summing in member order;
@@ -194,9 +198,9 @@ class ExchangeConfig:
 class RuntimeConfig:
     """Execution environment: devices, fault tolerance, convergence.
 
-    ``streaming``/``memory_budget``/``stream_*`` select the reference's
-    epoch-streaming execution and ``trace`` its span tracer; the port runs
-    neither yet."""
+    ``streaming``/``memory_budget``/``stream_*`` select epoch-streaming
+    execution of a tensor-store plan; ``trace`` asks for the reference's
+    span tracer, which the port does not run yet."""
 
     num_devices: int | None = None  # None = the visible cards (CPU: 1)
     checkpoint_dir: str | None = None

@@ -1,12 +1,15 @@
 """Execute layer: ``compile(plan, config) -> CPSolver``.
 
-The resident, untraced subset of the reference package's ``api/solver.py``.
-A :class:`CPSolver` owns the mesh, the per-mode shards placed on its
-logical devices, the resolved exchange spec, the per-mode ALS updates and
-the current :class:`~repro_torch.core.als.ALSState`:
+The untraced subset of the reference package's ``api/solver.py``. A
+:class:`CPSolver` owns the mesh, the per-mode shards placed on its logical
+devices (held through a :class:`~repro_torch.sparse.stream.ShardStreamer`,
+which also re-places rebalanced shards in the background), the resolved
+exchange spec, the per-mode ALS updates and the current
+:class:`~repro_torch.core.als.ALSState`:
 
     solver = api.compile(plan, cfg)             # on cuda:0..M-1 unless told
     result = solver.run(iters)                  # CPResult — or solver.sweep()
+    solver.close()                              # joins the streamer's thread
 
 ``compile(plan, cfg, mesh=cp_mesh(4, r, devices=["cuda:0"] * 4))`` places
 four logical devices on one card; ``device="cpu"`` runs every logical
@@ -15,17 +18,31 @@ device on the CPU. ``load_state`` installs GLOBAL-layout factors and
 reference checkpoint — onto every replica, so a run carries over between
 the packages.
 
+With ``kernel.autotune`` the ring depth is the tuned winner's (tuned on the
+mesh's first device), and with ``exchange.autotune_chunk`` an ``overlap``
+gather's chunk size is tuned on the mesh itself.
+
+``runtime.streaming=True`` runs a :class:`~repro_torch.store.TensorStore`
+plan out of core: every mode is split into super-shards that fit
+``runtime.memory_budget`` per device
+(:func:`~repro_torch.store.split_mode_super_shards`), and a
+:class:`~repro_torch.sparse.stream.SuperShardStreamer` moves them through
+pinned host buffers and a side CUDA stream while the previous one
+computes. The fits and factors are bitwise those of the same plan run
+resident.
+
 When ``config.schedule.rebalance`` is ``"measure"`` or ``"on"`` the solver
 also owns a :class:`~repro_torch.schedule.rebalance.Rebalancer`: every
 ``schedule.cadence`` sweeps it times each logical device's EC on its device,
 recalibrates the cost model, and — in ``"on"`` mode — applies
 block-granular nnz migrations between replication-group members as an
-incremental plan update that changes no array's shape, then places the
-moved modes' shards anew (synchronously: the reference's background
-re-placement waits for the streaming slice of the port). Sweeps between
-rebalance points read nothing on the host. Epoch streaming, checkpointing
-and span tracing raise ``NotImplementedError`` naming their ROADMAP item
-when the config asks for them.
+incremental plan update that changes no array's shape; the streamer then
+places the moved modes' shards anew in the background. With
+``runtime.memory_budget`` set, migrations stay inside the streamed-slot
+budget (:func:`~repro_torch.store.budget_slot_cap`). Sweeps between
+rebalance points read nothing on the host. Checkpointing and span tracing
+raise ``NotImplementedError`` naming their ROADMAP item when the config
+asks for them.
 """
 from __future__ import annotations
 
@@ -42,6 +59,9 @@ from repro_torch.core.decompose import CPResult
 from repro_torch.core.partition import CPPlan, validate_plan
 from repro_torch.kernels import _build
 from repro_torch.schedule import rebalance as rebalance_mod
+from repro_torch.sparse.stream import (ShardStreamer, SuperShardStreamer,
+                                       WindowSpill)
+from repro_torch.store.plan import budget_slot_cap, split_mode_super_shards
 
 __all__ = ["CPSolver", "compile", "validate_factor_payload", "resolve_device"]
 
@@ -79,15 +99,6 @@ def validate_factor_payload(factors, lam, *, shape, rank,
 def _reject_unported(config: DecomposeConfig) -> None:
     """Raise for every config feature the port does not run yet."""
     unported = [
-        # the reference caps migrations at the store's streamed-slot budget
-        # (store.plan.budget_slot_cap) when a memory budget is set
-        (config.schedule.telemetry_enabled
-         and config.runtime.memory_budget is not None,
-         f"runtime.memory_budget with schedule.rebalance="
-         f"{config.schedule.rebalance!r} (the Rebalancer's member caps)",
-         "Streaming and the store"),
-        (config.runtime.streaming, "runtime.streaming=True",
-         "Streaming and the store"),
         (config.runtime.checkpoint_dir is not None, "runtime.checkpoint_dir",
          "Plan cache and checkpoint"),
         (config.runtime.trace, "runtime.trace=True",
@@ -119,40 +130,126 @@ class CPSolver:
     def __init__(self, plan: CPPlan, config: DecomposeConfig,
                  mesh: dmttkrp.CPMesh):
         _reject_unported(config)
+        lazy = any(getattr(p, "lazy", False) for p in plan.modes)
+        if config.schedule.telemetry_enabled and lazy:
+            raise ValueError(
+                "schedule.rebalance='measure'/'on' needs an in-memory plan: "
+                "the rebalancer's probes and migrations address whole-mode "
+                "shard arrays, which an out-of-core TensorStore plan "
+                "deliberately never materializes. Plan from the in-memory "
+                "tensor (store.to_coo()) to use the dynamic scheduler, or "
+                "run with schedule.rebalance='off'.")
         self.plan = plan
         self.config = config
         self.mesh = mesh
+        self.streaming = config.runtime.streaming
         # The grams, the R×R solve and the fit are held to f32: TF32 keeps
         # about three decimal digits and would drift the fits away from the
         # reference's.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self._kernel_kw = config.kernel.mttkrp_kwargs()
-        self.exchange_spec = comm.resolve_exchange_spec(config.exchange)
-        self.dev_arrays = [dmttkrp.shard_plan_mode(p, mesh)
-                           for p in plan.modes]
-        self.updates = als_mod.make_sweep_updates(
-            plan, mesh, exchange_spec=self.exchange_spec, **self._kernel_kw)
+        self._kernel_kw = config.kernel.mttkrp_kwargs(
+            nmodes=plan.nmodes, rank=config.rank, device=mesh.devices[0])
+        self.exchange_spec = comm.resolve_exchange_spec(
+            config.exchange, plan=plan, rank=config.rank, mesh=mesh)
+        # per streamed sweep: transfer, exposed and hidden seconds, the
+        # windows placed and the bytes moved to each device
+        self.stream_events: list[dict] = []
+        if self.streaming:
+            if not all(getattr(p, "lazy", False) for p in plan.modes):
+                raise ValueError(
+                    "runtime.streaming=True needs an out-of-core plan "
+                    "(every mode a TensorStore-backed StoreModePartition): "
+                    "super-shards are materialized per tile window from "
+                    "store chunks. Plan from a TensorStore "
+                    "(api.plan(TensorStore(...), cfg)), or turn streaming "
+                    "off — an in-memory plan is already fully resident.")
+            budget = config.runtime.memory_budget
+            if budget is None:
+                raise ValueError(
+                    "runtime.streaming needs runtime.memory_budget "
+                    "(per-device bytes for streamed shard arrays); the "
+                    "super-shard split is defined by this budget")
+            buffers = config.runtime.stream_buffers
+            self.stream_plans = [
+                split_mode_super_shards(p, budget, buffers=buffers)
+                for p in plan.modes]
+            spill = None
+            if config.runtime.stream_spill:
+                spill = WindowSpill(config.runtime.stream_spill_dir)
+            self.streamer = SuperShardStreamer(
+                plan, mesh, self.stream_plans, buffers=buffers, spill=spill)
+            self.updates = als_mod.make_streaming_sweep_updates(
+                plan, mesh, rank=config.rank,
+                exchange_spec=self.exchange_spec, **self._kernel_kw)
+        else:
+            self.stream_plans = None
+            # All modes stay resident (prefetch=nmodes): the streamer is
+            # here for its background (re)placement, not for eviction —
+            # out-of-memory epoch streaming is the runtime.streaming path.
+            self.streamer = ShardStreamer(plan, mesh, prefetch=plan.nmodes)
+            self.updates = als_mod.make_sweep_updates(
+                plan, mesh, exchange_spec=self.exchange_spec,
+                **self._kernel_kw)
+            for d in range(plan.nmodes):  # placed now, as compile promises
+                self.streamer.get(d)
         self.rebalancer = None
         if config.schedule.telemetry_enabled:
             sched = config.schedule
+            member_caps = None
+            if config.runtime.memory_budget is not None:
+                # budget set on a resident plan: keep migrations inside the
+                # streamed-slot budget so a later streaming run of the same
+                # (rebalanced) layout still fits its super-shard windows
+                member_caps = {
+                    d: budget_slot_cap(
+                        config.runtime.memory_budget, nmodes=plan.nmodes,
+                        n_tiles=p.rows_max // p.tile, block_p=p.block_p,
+                        buffers=config.runtime.stream_buffers)
+                    for d, p in enumerate(plan.modes)}
             self.rebalancer = rebalance_mod.Rebalancer(
                 imbalance_threshold=sched.imbalance_threshold,
                 migration_budget=sched.migration_budget,
                 ewma_alpha=sched.ewma_alpha,
                 probe_repeats=sched.probe_repeats,
                 kernel_kw=self._kernel_kw,
-                migrate=sched.migrations_enabled)
+                migrate=sched.migrations_enabled,
+                member_nnz_caps=member_caps)
         # one dict per rebalance point, as the reference's event log holds
         # them (``launch.decompose`` prints them)
         self.schedule_events: list[dict] = []
         # per rebalance point: the raw probe seconds per mode and device,
         # the kernel launches the probes made (``_build.LAUNCHES`` deltas),
         # and the host seconds of the probes, the apply and the
-        # re-placement (kept apart from schedule_events, which stay the
-        # reference's values)
+        # re-placement's dispatch (kept apart from schedule_events, which
+        # stay the reference's values)
         self.rebalance_timings: list[dict] = []
         self.reset()
+
+    @property
+    def dev_arrays(self) -> list:
+        """Per-mode, per-device shards (kept resident by the streamer),
+        ready on each device's current stream."""
+        if self.streaming:
+            raise RuntimeError(
+                "no whole-mode resident shards in streaming mode: tensor "
+                "data cycles through super-shards under the memory budget; "
+                "see overlap_report() for what is resident")
+        return [self.streamer.get(d) for d in range(self.plan.nmodes)]
+
+    # -- teardown ----------------------------------------------------------
+    def close(self) -> None:
+        """Release the session's background resources: cancels the
+        streamer's pending prefetches and joins its thread, so no copy
+        outlives the solver, and removes an owned window spill.
+        Idempotent; the solver is unusable afterwards."""
+        self.streamer.close()
+
+    def __enter__(self) -> "CPSolver":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     # -- state lifecycle ---------------------------------------------------
     def reset(self) -> None:
@@ -192,9 +289,35 @@ class CPSolver:
     # -- execution ---------------------------------------------------------
     def sweep(self) -> als_mod.ALSState:
         """One full ALS sweep (all modes). The appended fit is a 0-d device
-        tensor (reading it blocks the host)."""
-        self.state = als_mod.als_sweep(self.plan, self.mesh, self.dev_arrays,
-                                       self.state, self.updates)
+        tensor (reading it blocks the host).
+
+        In streaming mode each mode iterates its super-shards through the
+        double-buffered streamer instead (fits bitwise identical), and the
+        sweep's transfer and exposed seconds are appended to
+        :attr:`stream_events`."""
+        if not self.streaming:
+            self.state = als_mod.als_sweep(self.plan, self.mesh,
+                                           self.dev_arrays, self.state,
+                                           self.updates)
+            return self.state
+        before = self.streamer.stats_snapshot()
+        self.state = als_mod.als_streaming_sweep(
+            self.plan, self.mesh, self.streamer, self.stream_plans,
+            self.state, self.updates)
+        after = self.streamer.stats_snapshot()
+        transfer = after["transfer_s"] - before["transfer_s"]
+        exposed = after["exposed_s"] - before["exposed_s"]
+        hidden = max(transfer - exposed, 0.0)
+        self.stream_events.append({
+            "sweep": self.state.sweep,
+            "transfer_s": transfer,
+            "exposed_s": exposed,
+            "hidden_s": hidden,
+            "overlap_fraction": hidden / transfer if transfer > 0 else None,
+            "shards_streamed": after["builds"] - before["builds"],
+            "bytes_streamed": after["bytes_streamed"]
+            - before["bytes_streamed"],
+        })
         return self.state
 
     def _synchronize(self) -> None:
@@ -212,9 +335,10 @@ class CPSolver:
         An applied decision's plan passes :func:`validate_plan` (each
         device visits a tile in one run of blocks, which the kernels need:
         they write each run's tile once, without atomics), and only the
-        modes where something moved are placed anew, synchronously, by
-        :func:`~repro_torch.core.mttkrp.shard_plan_mode` (which recomputes
-        the ``sorted`` descriptors)."""
+        modes where something moved are placed anew, by the streamer in the
+        background (:meth:`ShardStreamer.update_plan`, which recomputes the
+        ``sorted`` descriptors); the next sweep, or the next probe, waits
+        for them."""
         if self.rebalancer is None:
             return None
         self._synchronize()
@@ -239,16 +363,18 @@ class CPSolver:
             self.plan = validate_plan(plan)
             t2 = time.perf_counter()
             # Re-place only modes where something actually moved: a skipped
-            # migration leaves bit-identical arrays. The MTTKRPFn of each
+            # migration leaves bit-identical arrays. replace_s is the host
+            # time of the dispatch; the copies run on the streamer's thread
+            # and the next use of dev_arrays waits. The MTTKRPFn of each
             # mode update keeps the part it was built with; it reads only
             # mode, rows_max, tile, block_p, r and n_groups, none of which
             # a migration changes (shapes and ownership stay).
             moved = sorted({a["mode"] for a in applied
                             if a.get("moved_nnz", 0) > 0})
-            for mode in moved:
-                self.dev_arrays[mode] = dmttkrp.shard_plan_mode(
-                    self.plan.modes[mode], self.mesh)
-            self._synchronize()
+            if moved:
+                self.streamer.update_plan(self.plan, moved)
+            else:
+                self.streamer.plan = self.plan  # epoch bump only
             timing.update(apply_s=t2 - t1,
                           replace_s=time.perf_counter() - t2,
                           moved_modes=moved)
@@ -329,6 +455,14 @@ class CPSolver:
             "modelled": comm.modelled_exchange_bytes(
                 self.plan, self.config.rank, wire_dtype=spec.wire_dtype),
         }
+        if measure and self.streaming:
+            # the streaming updates split the EC across super-shards; the
+            # exchange runs once per mode on the accumulated partials, with
+            # the collectives the model above counts
+            report["counted_skipped"] = (
+                "streaming mode: the per-mode count runs the resident "
+                "update; modelled bytes above apply unchanged")
+            measure = False
         if measure:
             m = self.mesh.num_devices
             per_mode = []               # [mode][device]
@@ -343,6 +477,52 @@ class CPSolver:
                     sum(p[k]["total_bytes"] for p in per_mode)
                     for k in range(m)]}
         return report
+
+    def overlap_report(self) -> dict:
+        """Streaming budget accounting and per-sweep transfer overlap —
+        what ``launch.decompose --stream`` prints.
+
+        ``transfer_s`` is the total time of the window builds (chunk reads,
+        the scatter into slots, the pinned copy and the host→device copy on
+        the side stream, until its event completed); ``exposed_s`` the part
+        the sweep blocked on in ``get``; their difference is the time
+        double buffering hid behind compute. ``peak_resident_bytes`` counts
+        in-flight prefetches and is the quantity bounded by
+        ``runtime.memory_budget``. ``overlap_fraction_steady`` drops the
+        first streamed sweep, whose builds scan the store's chunks (the
+        one-time work the window spill then caches); None until a second
+        streamed sweep exists."""
+        if not self.streaming:
+            return {"enabled": False}
+        snap = self.streamer.stats_snapshot()
+        rt = self.config.runtime
+        transfer, exposed = snap["transfer_s"], snap["exposed_s"]
+        hidden = max(transfer - exposed, 0.0)
+        steady = self.stream_events[1:]
+        s_transfer = sum(e["transfer_s"] for e in steady)
+        s_exposed = sum(e["exposed_s"] for e in steady)
+        return {
+            "enabled": True,
+            "budget_bytes": int(rt.memory_budget),
+            "buffers": int(rt.stream_buffers),
+            "shards_per_mode": [sp.num_shards for sp in self.stream_plans],
+            "shard_bytes_per_mode": [sp.shard_bytes
+                                     for sp in self.stream_plans],
+            "peak_resident_bytes": int(snap["peak_resident_bytes"]),
+            "bytes_streamed": int(snap["bytes_streamed"]),
+            "builds": int(snap["builds"]),
+            "cold_builds": int(snap["cold_builds"]),
+            "transfer_s": transfer,
+            "exposed_s": exposed,
+            "hidden_s": hidden,
+            "overlap_fraction": hidden / transfer if transfer > 0 else None,
+            "overlap_fraction_steady":
+                (max(s_transfer - s_exposed, 0.0) / s_transfer
+                 if s_transfer > 0 else None),
+            "spill_hits": int(snap.get("spill_hits", 0)),
+            "spill_saves": int(snap.get("spill_saves", 0)),
+            "per_sweep": list(self.stream_events),
+        }
 
     def result(self) -> CPResult:
         """Snapshot the current state as a host-side :class:`CPResult`

@@ -1,7 +1,7 @@
 """repro_torch.comm — the factor-exchange subsystem (paper §4.9, Algorithm 3).
 
 The counterpart of the reference package's ``repro.comm``, minus its HLO
-measurement and its chunk autotuner:
+measurement:
 
 * :mod:`repro_torch.comm.collectives` — the gather-variant registry
   (``allgather | ring | overlap``) and merge-variant registry
@@ -12,6 +12,8 @@ measurement and its chunk autotuner:
   :func:`resolve_exchange_spec` (config → spec).
 * :mod:`repro_torch.comm.volume` — modelled exchange volume, and the bytes
   the collectives actually copied.
+* :mod:`repro_torch.comm.autotune` — the ``overlap`` chunk-size autotuner
+  (imported on demand by :func:`resolve_exchange_spec`).
 
 ``repro_torch.core.exchange`` is a thin backwards-compatibility shim over
 this package.

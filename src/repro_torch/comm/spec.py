@@ -8,8 +8,7 @@ an :class:`ExchangeSpec` is the fully resolved counterpart that
 ``resolve_exchange_spec`` is the single point where one becomes the other.
 
 Not ported: ``expected_hlo_markers``, which states what a lowered XLA
-update must contain and has no meaning without HLO; and the chunk-size
-autotuner, whose request raises (ROADMAP, queue 1, "Autotuner").
+update must contain and has no meaning without HLO.
 """
 from __future__ import annotations
 
@@ -77,7 +76,8 @@ class ExchangeSpec:
         return dict(merge=self.merge, wire_dtype=self.wire)
 
 
-def resolve_exchange_spec(config=None) -> ExchangeSpec:
+def resolve_exchange_spec(config=None, *, plan=None, rank: int | None = None,
+                          mesh=None) -> ExchangeSpec:
     """Resolve an :class:`repro_torch.api.ExchangeConfig`-shaped object
     (duck-typed: ``ring``, ``variant``, ``merge``, ``chunk_rows``,
     ``wire_dtype``, ``autotune_chunk``) into a concrete
@@ -85,11 +85,12 @@ def resolve_exchange_spec(config=None) -> ExchangeSpec:
 
     Precedence per field mirrors ``kernels/ops.py``: explicit config value >
     environment variable (``AMPED_EXCHANGE_VARIANT`` / ``_MERGE``) > legacy
-    ``ring`` flag (variant only) > default. An ``overlap`` variant with
-    ``autotune_chunk`` and no ``chunk_rows`` raises: the chunk-size
-    autotuner is not ported, and the default chunk is not what was asked
-    for. Otherwise an unset ``chunk_rows`` takes
-    :func:`collectives.default_chunk_rows` when the gather runs."""
+    ``ring`` flag (variant only) > default. With ``autotune_chunk`` and an
+    ``overlap`` variant, ``chunk_rows=None`` is filled by the chunk-size
+    autotuner (:mod:`repro_torch.comm.autotune`, timed on ``mesh``; needs
+    ``plan``, ``rank`` and ``mesh``, as in the reference); otherwise an
+    unset ``chunk_rows`` takes :func:`collectives.default_chunk_rows` when
+    the gather runs."""
     variant = collectives.resolve_variant(
         getattr(config, "variant", None), getattr(config, "ring", None))
     cfg_merge = getattr(config, "merge", None)
@@ -104,11 +105,12 @@ def resolve_exchange_spec(config=None) -> ExchangeSpec:
             merge = "ring_rs"
     chunk_rows = getattr(config, "chunk_rows", None)
     if chunk_rows is None and variant == "overlap" and \
-            getattr(config, "autotune_chunk", False):
-        raise NotImplementedError(
-            "exchange.autotune_chunk=True: the overlap chunk-size autotuner "
-            "is not ported to repro_torch yet (ROADMAP, queue 1, "
-            "'Autotuner'); set exchange.chunk_rows or "
-            "exchange.autotune_chunk=false")
+            getattr(config, "autotune_chunk", False) and \
+            plan is not None and rank is not None and mesh is not None:
+        from repro_torch.comm.autotune import autotune_chunk_rows
+        gather_rows = max(p.rows_max // p.r for p in plan.modes)
+        chunk_rows = autotune_chunk_rows(
+            gather_rows, rank, mesh,
+            wire_dtype=None if wire_dtype == "float32" else wire_dtype)
     return ExchangeSpec(variant=variant, merge=merge, chunk_rows=chunk_rows,
                         wire_dtype=wire_dtype)

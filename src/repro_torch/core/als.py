@@ -30,6 +30,12 @@ that mode's solve.)
 
 Factor matrices live in the padded ownership layout of their mode (see
 core/partition.py); padding rows are zero and stay zero.
+
+Epoch streaming (:func:`als_streaming_sweep`) runs the same sweep over an
+out-of-core plan's super-shards: per mode, each window's partial EC is
+folded into a zero accumulator, then merge, exchange and solve run once.
+Its fits and factors are bitwise those of :func:`als_sweep` on the
+resident shards of the same plan.
 """
 from __future__ import annotations
 
@@ -45,7 +51,9 @@ from repro_torch.core.partition import CPPlan
 
 __all__ = ["ALSState", "init_factors", "replicate", "make_mode_update",
            "make_sweep_updates", "als_sweep", "fit_from_stats",
-           "unpad_factors"]
+           "unpad_factors", "StreamingModeUpdate",
+           "make_streaming_mode_update", "make_streaming_sweep_updates",
+           "als_streaming_sweep"]
 
 
 @dataclasses.dataclass
@@ -142,6 +150,114 @@ def make_sweep_updates(plan: CPPlan, mesh, **mttkrp_kw) -> list[Callable]:
     :class:`repro_torch.api.CPSolver` owns."""
     return [make_mode_update(plan, d, mesh, **mttkrp_kw)
             for d in range(plan.nmodes)]
+
+
+# -- epoch streaming: super-shard partial accumulation ------------------------
+
+_STREAM_KERNEL_KEYS = ("use_kernel", "variant", "num_buffers")
+_STREAM_EXCHANGE_KEYS = ("exchange_spec",)
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamingModeUpdate:
+    """The three steps one mode's epoch-streaming update runs:
+    ``init_acc()`` → ``accumulate(acc, dev_arrays, factors)`` per
+    super-shard → ``finish(f_old, acc, other_factors, grams)``. While
+    ``accumulate`` computes super-shard k, the streamer's background thread
+    places super-shard k+1."""
+
+    init_acc: Callable[[], list]
+    accumulate: Callable
+    finish: Callable
+
+
+def make_streaming_mode_update(plan: CPPlan, mode: int, mesh, *, rank: int,
+                               **mttkrp_kw) -> StreamingModeUpdate:
+    """Streaming twin of :func:`make_mode_update`: the MTTKRP is split into
+    a per-super-shard partial accumulation (EC only, no exchange) and a
+    one-shot finish (merge + exchange + solve). Folding each super-shard's
+    masked EC into a zero accumulator reproduces the resident partial bit
+    for bit (windows split at tile boundaries: every output row is computed
+    by exactly one super-shard), so fits match the resident path bitwise.
+    Takes the same ``mttkrp_kw`` as :func:`make_mode_update`."""
+    unknown = set(mttkrp_kw) - set(_STREAM_KERNEL_KEYS
+                                   + _STREAM_EXCHANGE_KEYS)
+    if unknown:
+        raise TypeError(f"unknown mttkrp kwargs for streaming update: "
+                        f"{sorted(unknown)}")
+    kernel_kw = {k: v for k, v in mttkrp_kw.items()
+                 if k in _STREAM_KERNEL_KEYS}
+    part = plan.modes[mode]
+    pfn = dmttkrp.make_partial_mttkrp_fn(part, mesh, **kernel_kw)
+    ffn = dmttkrp.make_streaming_finish_fn(
+        part, mesh, exchange_spec=mttkrp_kw.get("exchange_spec"))
+
+    def init_acc():
+        return dmttkrp.zero_partials(part, mesh, rank)
+
+    def finish(f_old, acc, other_factors, grams):
+        ms = ffn(acc)                           # per device (padded_d, R)
+        solved = [_solve(m, f_old[k], [g[k] for g in grams], mode)
+                  for k, m in enumerate(ms)]
+        f_new, g_new, lam = (list(x) for x in zip(*solved))
+        return f_new, g_new, ms, lam
+
+    return StreamingModeUpdate(init_acc=init_acc, accumulate=pfn,
+                               finish=finish)
+
+
+def make_streaming_sweep_updates(plan: CPPlan, mesh, *, rank: int,
+                                 **mttkrp_kw) -> list[StreamingModeUpdate]:
+    """One :func:`make_streaming_mode_update` per mode — what
+    :class:`repro_torch.api.CPSolver` owns in streaming mode."""
+    return [make_streaming_mode_update(plan, d, mesh, rank=rank, **mttkrp_kw)
+            for d in range(plan.nmodes)]
+
+
+def _barrier(tensors) -> None:
+    """Wait until the work that writes ``tensors`` (one per logical
+    device) has run on their devices' current streams."""
+    for s in {torch.cuda.current_stream(t.device) for t in tensors
+              if t.device.type == "cuda"}:
+        s.synchronize()
+
+
+def als_streaming_sweep(plan: CPPlan, mesh, streamer, stream_plans,
+                        state: ALSState,
+                        updates: Sequence[StreamingModeUpdate]) -> ALSState:
+    """One full epoch-streaming sweep: per mode, iterate that mode's
+    super-shards through the double-buffered streamer, folding each
+    partial MTTKRP into the accumulator, then merge/exchange/solve once.
+    Fits and factors are bitwise those of :func:`als_sweep` on the
+    resident shards.
+
+    ``streamer.get(d, k)`` returns super-shard k's arrays and dispatches
+    k+1's transfer in the background; the enqueued ``accumulate`` is what
+    hides it. After each window the host waits for its accumulation (the
+    reference's per-window barrier): the next window's compute depends on
+    this accumulator anyway, and it keeps the streamer's exposed time
+    honest (the time ``get`` blocks is transfer NOT hidden behind compute,
+    not host queue-ahead racing the device)."""
+    n = plan.nmodes
+    factors, grams = list(state.factors), list(state.grams)
+    m_last = f_last = lam = None
+    for d in range(n):
+        upd = updates[d]
+        acc = upd.init_acc()
+        for k in range(stream_plans[d].num_shards):
+            dev = streamer.get(d, k)
+            acc = upd.accumulate(acc, dev, factors)
+            _barrier(acc)
+        others = [factors[w] for w in range(n) if w != d]
+        f_d, g_d, m_d, lam = upd.finish(factors[d], acc, others, grams)
+        factors[d], grams[d] = f_d, g_d
+        m_last, f_last = m_d, f_d
+    fits = [fit_from_stats(plan.norm, m_last[k], f_last[k], lam[k],
+                           [g[k] for g in grams])
+            for k in range(len(lam))]
+    return ALSState(factors=factors, lam=lam, grams=grams,
+                    sweep=state.sweep + 1, fits=state.fits + [fits[0]],
+                    replica_fits=fits)
 
 
 def fit_from_stats(norm_x: float, m_last, f_last, lam, grams) -> torch.Tensor:

@@ -22,6 +22,12 @@ A "replicated" tensor is a list of per-device tensors that hold the same
 bits. Logical devices may share a card (or the CPU) when the caller asks
 for it with ``cp_mesh(M, r, devices=[...])``; on one device merge and
 exchange are the identity.
+
+Epoch streaming splits one mode's MTTKRP into per-super-shard partial ECs
+folded into a zero accumulator (:func:`make_partial_mttkrp_fn`) and one
+merge + exchange on the sum (:func:`make_streaming_finish_fn`). The
+super-shards of an out-of-core plan are placed by
+:func:`shard_super_shard`, each device's window into its own tensors.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import dataclasses
 import itertools
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from repro_torch import comm
@@ -36,8 +43,10 @@ from repro_torch.core.partition import (CPPlan, ModePartition,
                                         block_segment_descriptors)
 from repro_torch.kernels import ops as kops
 
-__all__ = ["CPMesh", "cp_mesh", "DeviceArrays", "shard_plan_mode",
-           "MTTKRPFn", "make_mttkrp_fn", "distributed_mttkrp"]
+__all__ = ["CPMesh", "cp_mesh", "DeviceArrays", "Placed", "place_mode",
+           "shard_plan_mode", "MTTKRPFn", "make_mttkrp_fn",
+           "distributed_mttkrp", "shard_super_shard", "zero_partials",
+           "make_partial_mttkrp_fn", "make_streaming_finish_fn"]
 
 AXES = ("group", "sub")
 
@@ -157,30 +166,97 @@ class DeviceArrays:
                    for t in dataclasses.astuple(self))
 
 
-def shard_plan_mode(part: ModePartition, mesh: CPMesh) -> list[DeviceArrays]:
+_ARRAY_NAMES = ("indices", "values", "local_rows", "block_to_tile",
+                "tile_visited", "seg_starts", "seg_rows")
+
+
+@dataclasses.dataclass(frozen=True)
+class Placed:
+    """One key's shards on the mesh, as a placement thread left them:
+    ``arrays[k]`` lies on logical device ``k``, and where it was copied on
+    a side CUDA stream, ``ready[k]`` is the event recorded after its last
+    copy (``None``: already usable on every stream)."""
+
+    arrays: list[DeviceArrays]
+    ready: list
+
+    def wait(self) -> list[DeviceArrays]:
+        """Make each device's current stream wait for its copies, and mark
+        the tensors used on that stream (``record_stream``), so that the
+        caching allocator does not hand their memory out again while a
+        kernel of that stream may still read it. Returns ``arrays``."""
+        for dev, ev in zip(self.arrays, self.ready):
+            if ev is None:
+                continue
+            stream = torch.cuda.current_stream(dev.values.device)
+            stream.wait_event(ev)
+            for t in dataclasses.astuple(dev):
+                t.record_stream(stream)
+        return self.arrays
+
+
+def _place_device(host: Sequence[np.ndarray], device: torch.device,
+                  stream=None) -> tuple[DeviceArrays, object]:
+    """One device's seven host arrays onto ``device``. With a side CUDA
+    ``stream``, each array is copied into a pinned host buffer and from
+    there to the card on that stream, and an event is recorded after the
+    last copy: the host does not wait for the transfer. Pinning that fails
+    raises; there is no pageable fallback. Without one, the copies are
+    ordinary synchronous ones."""
+    if stream is None or device.type != "cuda":
+        return DeviceArrays(*(torch.from_numpy(np.ascontiguousarray(x)).to(
+            device, copy=True) for x in host)), None
+    with torch.cuda.device(device), torch.cuda.stream(stream):
+        out = []
+        for x in host:
+            pinned = torch.from_numpy(np.ascontiguousarray(x)).pin_memory()
+            # the caching host allocator keeps the pinned block until this
+            # copy has run
+            out.append(pinned.to(device, non_blocking=True))
+        ev = torch.cuda.Event()
+        ev.record(stream)
+    return DeviceArrays(*out), ev
+
+
+def _device_host_arrays(part, k: int) -> tuple[np.ndarray, ...]:
+    """Device ``k``'s seven host arrays of ``part``: a lazy partition's
+    payload is materialized from its store here, one device at a time."""
+    if getattr(part, "lazy", False):
+        ind, val, rows = part.device_arrays(k)
+    else:
+        ind, val, rows = (part.indices[k], part.values[k],
+                          part.local_rows[k])
+    ss, sr = block_segment_descriptors(rows, tile=part.tile,
+                                       block_p=part.block_p)
+    return (ind, val, rows, part.block_to_tile[k], part.tile_visited[k],
+            ss, sr)
+
+
+def place_mode(part, mesh: CPMesh, streams=None) -> Placed:
     """Move one mode's host arrays onto the mesh, shard ``k`` onto logical
     device ``k``, computing the sorted variant's segment descriptors on the
-    way (as the reference does, mttkrp.py:93-99)."""
+    way (as the reference does, mttkrp.py:93-99). Out-of-core partitions
+    (``part.lazy``) never stack a host ``(m, nnz_max)`` array: each
+    device's slice is streamed from the store and placed before the next
+    one is read. ``streams`` maps a card index to its side copy stream
+    (see :func:`_place_device`); ``None`` copies synchronously."""
     _check_mesh(part, mesh)
-    out = []
+    arrays, ready = [], []
     for k, device in enumerate(mesh.devices):
-        ss, sr = block_segment_descriptors(part.local_rows[k],
-                                           tile=part.tile,
-                                           block_p=part.block_p)
+        host = _device_host_arrays(part, k)
+        stream = None if streams is None or device.type != "cuda" \
+            else streams[device.index]
+        dev, ev = _place_device(host, device, stream)
+        del host  # host copy freed before the next device's slice
+        arrays.append(dev)
+        ready.append(ev)
+    return Placed(arrays, ready)
 
-        def put(x):
-            return torch.from_numpy(x).to(device, copy=True)
 
-        out.append(DeviceArrays(
-            indices=put(part.indices[k]),
-            values=put(part.values[k]),
-            local_rows=put(part.local_rows[k]),
-            block_to_tile=put(part.block_to_tile[k]),
-            tile_visited=put(part.tile_visited[k]),
-            seg_starts=put(ss),
-            seg_rows=put(sr),
-        ))
-    return out
+def shard_plan_mode(part, mesh: CPMesh) -> list[DeviceArrays]:
+    """:func:`place_mode` with synchronous copies: the shards, usable on
+    every stream when this returns."""
+    return place_mode(part, mesh).arrays
 
 
 class MTTKRPFn:
@@ -242,6 +318,95 @@ def make_mttkrp_fn(part: ModePartition, mesh: CPMesh, *,
                     kernel_kw=dict(use_kernel=use_kernel, variant=variant,
                                    num_buffers=num_buffers),
                     exchange_spec=exchange_spec)
+
+
+# -- epoch streaming: super-shard partial accumulation ------------------------
+
+def shard_super_shard(part, stream_plan, k: int, mesh: CPMesh, *,
+                      spill=None, streams=None) -> Placed:
+    """Place super-shard ``k`` of an out-of-core mode on the mesh: each
+    logical device gets its own tensors for its tile window
+    ``stream_plan.windows[dev][k]`` (the blocking metadata differs per
+    window, not only the payload). Shapes are the stream plan's caps, so
+    every super-shard of a mode has one shape. Devices whose window list is
+    exhausted get empty ``(0, 0)`` windows: pure padding, exact no-ops
+    under the tile mask.
+
+    ``spill`` (a :class:`~repro_torch.sparse.stream.WindowSpill`)
+    short-circuits the chunk-scan materialization with the window's on-disk
+    copy from an earlier sweep; non-empty windows built fresh are saved
+    back. The ``sorted`` descriptors are computed from the window's
+    ``local_rows`` after any spill load, as the reference does, so the
+    spill holds five arrays. ``streams`` as in :func:`place_mode`."""
+    _check_mesh(part, mesh)
+    sp = stream_plan
+    arrays, ready = [], []
+    for dev_id, device in enumerate(mesh.devices):
+        t0, t1 = sp.windows[dev_id][k]
+        skey = (k, t0, t1, sp.nnz_cap, sp.nblocks)
+        arrs = (spill.load(part.mode, dev_id, skey)
+                if spill is not None else None)
+        if arrs is None:
+            arrs = part.super_shard_arrays(dev_id, t0, t1,
+                                           nnz_cap=sp.nnz_cap,
+                                           nblocks=sp.nblocks)
+            if spill is not None and t1 > t0:
+                spill.save(part.mode, dev_id, skey, arrs)
+        host = tuple(arrs) + block_segment_descriptors(
+            arrs[2], tile=part.tile, block_p=part.block_p)
+        stream = None if streams is None or device.type != "cuda" \
+            else streams[device.index]
+        dev, ev = _place_device(host, device, stream)
+        del arrs, host  # host copy freed before the next device's window
+        arrays.append(dev)
+        ready.append(ev)
+    return Placed(arrays, ready)
+
+
+def zero_partials(part, mesh: CPMesh, rank: int) -> list[torch.Tensor]:
+    """Zero per-device MTTKRP accumulators, ``(rows_max, R)`` f32 on each
+    logical device — the running sums super-shard partials fold into."""
+    return [torch.zeros((part.rows_max, rank), dtype=torch.float32,
+                        device=d) for d in mesh.devices]
+
+
+def make_partial_mttkrp_fn(part, mesh: CPMesh, *, use_kernel: bool = True,
+                           variant: str | None = None, num_buffers: int = 2):
+    """``fn(acc, dev_arrays, factors) -> acc``: every device's local EC on
+    its super-shard, added into its accumulator in place — no merge, no
+    gather.
+
+    Super-shards split at tile boundaries, so each output row is produced
+    by ONE super-shard's EC, with the resident shard's block order and
+    slot order; every other super-shard adds an exact 0.0 there (masked
+    tiles). A zero accumulator therefore ends up holding the resident
+    partial bit for bit — also where a window's trailing pad blocks
+    lengthen its last tile's run past ``CHUNK_BLOCKS``: those blocks add
+    exact zeros to the chunk partials — and the finish
+    (:func:`make_streaming_finish_fn`) is the resident exchange."""
+    local = MTTKRPFn(part, mesh,
+                     kernel_kw=dict(use_kernel=use_kernel, variant=variant,
+                                    num_buffers=num_buffers),
+                     exchange_spec=comm.ExchangeSpec()).local
+
+    def fn(acc, dev_arrays, factors):
+        for a, partial in zip(acc, local(dev_arrays, factors), strict=True):
+            a.add_(partial)
+        return acc
+
+    return fn
+
+
+def make_streaming_finish_fn(part, mesh: CPMesh, *,
+                             exchange_spec: comm.ExchangeSpec | None = None):
+    """``fn(acc) ->`` per device the replicated padded output
+    ``(padded_rows, R)``: the merge (r > 1) and gather of
+    :func:`make_mttkrp_fn`, run once on the accumulated partials — the
+    same collectives, schedule and wire dtype as the resident path."""
+    if exchange_spec is None:
+        exchange_spec = comm.resolve_exchange_spec(None)
+    return MTTKRPFn(part, mesh, kernel_kw={},
+                    exchange_spec=exchange_spec).exchange
 
 
 def distributed_mttkrp(plan: CPPlan, mode: int, mesh: CPMesh,

@@ -2,8 +2,9 @@
 
 A copy of the reference package's ``core/partition.py``, held array for
 array and bitwise against it by the tests, so that the port plans without
-importing the reference. Only the in-memory path is here; the out-of-core
-store and the plan cache wait for their own slices of the port.
+importing the reference. The out-of-core plans of :mod:`repro_torch.store`
+build on :func:`mode_layout`; the plan cache waits for its own slice of
+the port.
 
 For each output mode ``d`` the tensor is sharded so that **all nonzeros that
 update the same output factor-matrix row live on the same device group** —
@@ -171,7 +172,17 @@ class ModePartition:
     static and equal across devices (padding entries have ``values == 0`` and
     ``local_rows`` pointing at a row the device already owns, so they are
     exact no-ops).
+
+    ``META_FIELDS`` are the scalar fields a lazy
+    :class:`~repro_torch.store.StoreModePartition` shares with this class.
     """
+
+    META_FIELDS = ("mode", "num_devices", "r", "n_groups", "rows_max",
+                   "tile", "block_p", "block_layout")
+    # The out-of-core counterpart (repro_torch.store.StoreModePartition)
+    # flips this: lazy partitions defer indices/values/local_rows to
+    # per-device streaming materialization and reject whole-array access.
+    lazy = False
 
     mode: int
     num_devices: int

@@ -12,8 +12,8 @@ into its output row. Order of the sums: a tile's run of at most
 ``_build.CHUNK_BLOCKS`` blocks sums each row in slot order (the bits of the
 slot-order ``ref``); a longer run sums each chunk of that many blocks in
 slot order and the chunks in chunk order (``ref.ec_rows_chunked``). The
-result is bitwise that of :func:`ec_sorted_plain` on the CPU, and on the
-card under ``torch.use_deterministic_algorithms(True)``.
+result is bitwise that of :func:`ec_sorted_plain` on the CPU and on the
+card (whose ``index_add_`` runs in slot order, ``ref.slot_order_index_add``).
 
 What bounds it on the H100. Bytes: per slot it reads a value, ``nin``
 indices and ``nin`` factor rows of ``R`` f32, and does ``(nin + 1)·R``

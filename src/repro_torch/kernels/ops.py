@@ -64,21 +64,23 @@ def resolve_variant(variant: str | None = None, use_kernel: bool = True) -> str:
     return variant
 
 
-def kernel_kwargs_from_config(cfg) -> dict:
+def kernel_kwargs_from_config(cfg, *, nmodes: int | None = None,
+                              rank: int | None = None, device=None) -> dict:
     """Resolve a :class:`repro_torch.api.KernelConfig`-shaped object
     (``use_kernel``, ``variant``, ``num_buffers``, ``autotune``) into the
-    kwargs ``make_mttkrp_fn`` / ``mttkrp_local`` take. Where the reference
-    would ask its autotuner for ``num_buffers``, this raises: the autotuner
-    is not ported yet (ROADMAP, queue 1, "Autotuner")."""
+    kwargs ``make_mttkrp_fn`` / ``mttkrp_local`` take — including the ring
+    depth, with the reference's precedence: explicit ``num_buffers`` >
+    the autotuned winner (when ``cfg.autotune`` and the problem key
+    ``(nmodes, rank)`` is given; tuned on ``device``, ``None`` being the
+    card, and memoized) > :data:`DEFAULT_NUM_BUFFERS`."""
     variant = resolve_variant(getattr(cfg, "variant", None),
                               getattr(cfg, "use_kernel", True))
     num_buffers = getattr(cfg, "num_buffers", None)
     if num_buffers is None and getattr(cfg, "autotune", False) and \
-            variant != "ref":
-        raise NotImplementedError(
-            "kernel.autotune=True: the EC autotuner is not ported to "
-            "repro_torch yet (ROADMAP, queue 1, 'Autotuner'); set "
-            "kernel.autotune=false or an explicit kernel.num_buffers")
+            variant != "ref" and nmodes is not None and rank is not None:
+        from repro_torch.kernels import autotune
+        num_buffers = autotune.autotune_ec(nmodes, rank, variant=variant,
+                                           device=device).num_buffers
     return dict(
         use_kernel=variant != "ref",
         variant=variant,

@@ -11,10 +11,12 @@ Accumulation order. :func:`ec_rows_ref` uses *slot order*: ``e`` is formed
 as ``((val * rows_0) * rows_1) ...`` in f32 and added into its output row
 with ``index_add_`` in the order of the slots. On a CPU tensor
 ``index_add_`` walks the indices in order, so the result is bitwise that of
-the reference's ``segment_sum`` (held by the tests). On a CUDA tensor
-``index_add_`` uses atomics, whose order changes from run to run, unless
-``torch.use_deterministic_algorithms(True)`` is set, under which it too
-sums in index order.
+the reference's ``segment_sum`` (held by the tests). On a CUDA tensor its
+default algorithm uses atomics, whose order changes from run to run; so
+every ``index_add_`` here runs through :func:`slot_order_index_add`, which
+selects PyTorch's deterministic algorithm for that one call (a stable sort
+of the indices, then each row's terms added in sorted order: slot order)
+and restores the caller's setting after. The callers set no flag.
 
 :func:`ec_rows_chunked` computes the same function in the fixed two-level
 order of the CUDA kernels: a tile's run of at most ``chunk_blocks`` blocks
@@ -28,7 +30,25 @@ from typing import Sequence
 import torch
 
 __all__ = ["ec_rows_ref", "ec_rows_chunked", "mttkrp_local_ref",
-           "mttkrp_dense_ref"]
+           "mttkrp_dense_ref", "slot_order_index_add"]
+
+
+def slot_order_index_add(out: torch.Tensor, index: torch.Tensor,
+                         src: torch.Tensor) -> torch.Tensor:
+    """``out.index_add_(0, index, src)`` with each row's terms added in
+    slot order, on every device. A CPU tensor already does so. On a CUDA
+    tensor the call runs under ``torch.use_deterministic_algorithms(True)``
+    and the caller's setting (warn-only included) is restored after, also
+    when the call raises."""
+    if out.device.type != "cuda":
+        return out.index_add_(0, index, src)
+    was = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        return out.index_add_(0, index, src)
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn_only)
 
 
 def ec_rows_ref(values: torch.Tensor, gathered_rows: Sequence[torch.Tensor],
@@ -42,7 +62,7 @@ def ec_rows_ref(values: torch.Tensor, gathered_rows: Sequence[torch.Tensor],
     e = _products(values, gathered_rows)
     out = torch.zeros((num_rows, e.shape[1]), dtype=torch.float32,
                       device=e.device)
-    return out.index_add_(0, local_rows, e)
+    return slot_order_index_add(out, local_rows, e)
 
 
 def _products(values, gathered_rows):
@@ -88,7 +108,7 @@ def ec_rows_chunked(values: torch.Tensor,
     chunk_id = torch.cumsum(chunk_first, 0) - 1
     slot_split = split.repeat_interleave(block_p)
     direct = ~slot_split
-    out.index_add_(0, local_rows[direct], e[direct])
+    slot_order_index_add(out, local_rows[direct], e[direct])
     n_chunks = int(chunk_id[-1]) + 1
     if n_chunks == 0:
         return out
@@ -96,10 +116,11 @@ def ec_rows_chunked(values: torch.Tensor,
     rows = local_rows[slot_split].long()
     partial = torch.zeros((n_chunks * tile, e.shape[1]), dtype=torch.float32,
                           device=dev)
-    partial.index_add_(0, slot_chunk * tile + rows % tile, e[slot_split])
+    slot_order_index_add(partial, slot_chunk * tile + rows % tile,
+                         e[slot_split])
     dest = (b2t[chunk_first][:, None] * tile
             + torch.arange(tile, device=dev)).reshape(-1)
-    return out.index_add_(0, dest, partial)
+    return slot_order_index_add(out, dest, partial)
 
 
 def mttkrp_local_ref(indices: torch.Tensor, values: torch.Tensor,

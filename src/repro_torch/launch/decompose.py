@@ -1,27 +1,34 @@
 """CP decomposition launcher for the port: runs the paper's workload.
 
-    PYTHONPATH=src python -m repro_torch.launch.decompose --preset sorted \\
-        --set kernel.autotune=false --profile amazon --scale 1e-3
-    PYTHONPATH=src python -m repro_torch.launch.decompose --preset sorted \\
-        --set kernel.autotune=false --scale 2e-5 --device cpu   # no card
-    PYTHONPATH=src python -m repro_torch.launch.decompose --profile twitch \\
+    PYTHONPATH=src python -m repro_torch.launch.decompose --preset sorted \
+        --profile amazon --scale 1e-3
+    PYTHONPATH=src python -m repro_torch.launch.decompose --preset sorted \
+        --scale 2e-5 --device cpu                     # no card
+    PYTHONPATH=src python -m repro_torch.launch.decompose --profile twitch \
         --scale 2e-5 --device cpu --devices 4 --exchange-report
-    PYTHONPATH=src python -m repro_torch.launch.decompose --profile twitch \\
-        --scale 2e-5 --device cpu --devices 4 \\
+    PYTHONPATH=src python -m repro_torch.launch.decompose --profile twitch \
+        --scale 2e-5 --device cpu --devices 4 \
         --set partition.strategy=equal_nnz --rebalance
+    PYTHONPATH=src python -m repro_torch.store.convert amazon /tmp/a.store \
+        --profile --scale 2e-5
+    PYTHONPATH=src python -m repro_torch.launch.decompose --store /tmp/a.store \
+        --stream --memory-budget-mb 0.5 --device cpu
 
 Runs the staged repro_torch.api pipeline — on ``cuda:0 .. cuda:N-1`` (one
 logical device per card; fewer visible cards than ``--devices`` raises)
 unless ``--device cpu``, which runs the N logical devices on the CPU — and
 reports preprocessing (plan) time separately from compile (shard placement)
-and execution time, as the reference launcher does. ``--exchange-report``
-prints the modelled exchange bytes of one sweep and the bytes that each
-logical device counted. ``--rebalance`` (``schedule.rebalance=on``) and
-``--measure-balance`` (``=measure``) turn the dynamic load balancer on and
-print its calibrated cost model, the measured and modelled max/mean
-imbalance per mode and each rebalance point, as the reference launcher
-does. The ``fused`` and ``sorted`` presets turn the autotuner on, which
-the port does not have yet: pass ``--set kernel.autotune=false``.
+and execution time, as the reference launcher does. The ``fused`` and
+``sorted`` presets autotune the kernel geometry on that device first.
+``--store`` runs from an out-of-core tensor store (planning reads its
+manifest statistics only); ``--stream`` with ``--memory-budget-mb`` runs
+it in budget-sized super-shards and prints the streaming report.
+``--exchange-report`` prints the modelled exchange bytes of one sweep and
+the bytes that each logical device counted. ``--rebalance``
+(``schedule.rebalance=on``) and ``--measure-balance`` (``=measure``) turn
+the dynamic load balancer on and print its calibrated cost model, the
+measured and modelled max/mean imbalance per mode and each rebalance point,
+as the reference launcher does.
 """
 from __future__ import annotations
 
@@ -45,6 +52,11 @@ def main(argv=None):
     src.add_argument("--tns", default=None, metavar="PATH",
                      help="read the tensor from a .tns/.tns.gz file instead "
                           "of a synthetic profile")
+    src.add_argument("--store", default=None, metavar="DIR",
+                     help="run out-of-core from a tensor store directory "
+                          "(repro_torch.store.convert); planning reads "
+                          "manifest stats only and shards stream per "
+                          "device")
     ap.add_argument("--scale", type=float, default=2e-4)
     ap.add_argument("--rank", type=int, default=32)
     ap.add_argument("--iters", type=int, default=5)
@@ -65,6 +77,15 @@ def main(argv=None):
     ap.add_argument("--exchange-report", action="store_true",
                     help="print modelled vs counted exchange bytes per "
                          "sweep")
+    ap.add_argument("--stream", action="store_true",
+                    help="epoch-streaming execution: each mode's sweep "
+                         "iterates over budget-sized super-shards with "
+                         "double-buffered host-to-device transfer "
+                         "(requires --store and --memory-budget-mb)")
+    ap.add_argument("--memory-budget-mb", type=float, default=None,
+                    metavar="MB",
+                    help="per-device memory budget for --stream, in MiB "
+                         "(covers all stream buffers of one mode shard)")
     args = ap.parse_args(argv)
 
     import repro_torch.api as api
@@ -77,9 +98,19 @@ def main(argv=None):
         cfg = cfg.with_overrides({"schedule.rebalance": "on"})
     elif args.measure_balance:
         cfg = cfg.with_overrides({"schedule.rebalance": "measure"})
+    if args.stream:
+        overrides = {"runtime.streaming": True}
+        if args.memory_budget_mb is not None:
+            overrides["runtime.memory_budget"] = \
+                int(args.memory_budget_mb * 2 ** 20)
+        cfg = cfg.with_overrides(overrides)
     cfg = api.apply_set_args(cfg, args.set_args)
 
-    if args.tns is not None:
+    if args.store is not None:
+        from repro_torch.store import TensorStore
+        t = TensorStore(args.store)
+        source = f"store {args.store}"
+    elif args.tns is not None:
         t = read_tns(args.tns)
         source = args.tns
     else:
@@ -127,11 +158,34 @@ def main(argv=None):
     if args.exchange_report:
         rep = solver.exchange_report()
         spec = rep["spec"]
+        counted = (f"counted per device "
+                   f"{rep['counted']['sweep_bytes_per_device']} B"
+                   if "counted" in rep else rep["counted_skipped"])
         print(f"exchange {spec['variant']}/{spec['merge']} wire="
-              f"{spec['wire_dtype']}: modelled "
-              f"{rep['modelled']['sweep_total_bytes']} B/sweep/device, "
-              f"counted per device "
-              f"{rep['counted']['sweep_bytes_per_device']} B")
+              f"{spec['wire_dtype']}"
+              + (f" chunk_rows={spec['chunk_rows']}"
+                 if spec["chunk_rows"] else "")
+              + f": modelled {rep['modelled']['sweep_total_bytes']} "
+              f"B/sweep/device, {counted}")
+
+    ov = solver.overlap_report()
+    if ov.get("enabled"):
+        print(f"streaming: budget {ov['budget_bytes'] / 2**20:.1f} MiB/dev "
+              f"x{ov['buffers']} buffers | shards/mode "
+              f"{ov['shards_per_mode']} | peak resident "
+              f"{ov['peak_resident_bytes'] / 2**20:.1f} MiB | "
+              f"{ov['bytes_streamed'] / 2**20:.1f} MiB streamed "
+              f"({ov['builds']} builds, {ov['cold_builds']} cold)")
+        steady = ov["overlap_fraction_steady"]
+        overlap = ov["overlap_fraction"]
+        print(f"  transfer {ov['transfer_s']:.2f}s | hidden "
+              f"{ov['hidden_s']:.2f}s | exposed {ov['exposed_s']:.2f}s"
+              + (f" | overlap {overlap:.1%}" if overlap is not None else "")
+              + (f" (steady {steady:.1%})" if steady is not None else ""))
+        if ov["spill_saves"] or ov["spill_hits"]:
+            print(f"  window spill: {ov['spill_saves']} saved, "
+                  f"{ov['spill_hits']} replayed")
+    solver.close()
 
 
 if __name__ == "__main__":

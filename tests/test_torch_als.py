@@ -216,10 +216,34 @@ def test_config_round_trips_between_packages():
      "Autotuner"),
     ({"kernel.autotune": True, "kernel.use_kernel": True}, "Autotuner"),
 ])
-def test_plan_rejects_unported(small_tensor, overrides, item):
-    cfg = tapi.preset("paper", overrides)
-    with pytest.raises(NotImplementedError, match=item):
-        tapi.plan(_port_tensor(small_tensor), cfg)
+def test_plan_rejects_unported(small_tensor, overrides, item, monkeypatch):
+    """Both autotuners are ported (they used to raise here): with the EC
+    tuners of both packages patched to one winner, the plan is the
+    reference's, bitwise, and the compiled spec resolves the chunk size and
+    the ring depth as the reference resolves them (on one device the chunk
+    tuner returns the default chunking untimed)."""
+    from repro.comm import resolve_exchange_spec as j_resolve
+    from repro.kernels import autotune as j_at
+    from repro_torch.kernels import autotune as t_at
+    assert item == "Autotuner"
+    monkeypatch.setattr(j_at, "autotune_ec",
+                        lambda *a, **k: j_at.ECConfig(16, 64, 3))
+    monkeypatch.setattr(t_at, "autotune_ec",
+                        lambda *a, **k: t_at.ECConfig(16, 64, 3))
+    jcfg = japi.preset("paper", {"rank": 8, **overrides})
+    tcfg = tapi.preset("paper", {"rank": 8, **overrides})
+    jplan = japi.plan(small_tensor, jcfg)
+    tplan = tapi.plan(_port_tensor(small_tensor), tcfg, device="cpu")
+    for jm, tm in zip(jplan.modes, tplan.modes, strict=True):
+        assert (tm.tile, tm.block_p) == (jm.tile, jm.block_p)
+        for f in ("indices", "values", "local_rows", "block_to_tile"):
+            np.testing.assert_array_equal(getattr(tm, f), getattr(jm, f))
+    solver = tapi.compile(tplan, tcfg, device="cpu")
+    jspec = j_resolve(jcfg.exchange, plan=jplan, rank=8,
+                      mesh=j_dm.cp_mesh(1, 1))
+    assert solver.exchange_spec.chunk_rows == jspec.chunk_rows
+    assert solver.exchange_spec.variant == jspec.variant
+    assert solver._kernel_kw == jcfg.kernel.mttkrp_kwargs(nmodes=3, rank=8)
 
 
 @pytest.mark.parametrize("overrides,item", [
@@ -230,9 +254,29 @@ def test_plan_rejects_unported(small_tensor, overrides, item):
     ({"runtime.trace": True}, "tracing"),
 ])
 def test_compile_rejects_unported(small_tensor, overrides, item):
+    """Checkpointing and tracing still raise. The rebalancer under a memory
+    budget is ported: its member caps are the reference's. Streaming an
+    in-memory plan is refused by both packages alike (it needs a tensor
+    store plan)."""
     plan = tapi.plan(_port_tensor(small_tensor), tapi.preset("paper"))
-    with pytest.raises(NotImplementedError, match=item):
-        tapi.compile(plan, tapi.preset("paper", overrides), device="cpu")
+    cfg = tapi.preset("paper", overrides)
+    if item in ("checkpoint", "tracing"):
+        with pytest.raises(NotImplementedError, match=item):
+            tapi.compile(plan, cfg, device="cpu")
+        return
+    jcfg = japi.preset("paper", overrides)
+    jplan = japi.plan(small_tensor, jcfg)
+    if item == "Streaming":
+        for compile_, p, c in ((japi.compile, jplan, jcfg),
+                               (lambda p, c: tapi.compile(p, c,
+                                                          device="cpu"),
+                                plan, cfg)):
+            with pytest.raises(ValueError, match="out-of-core plan"):
+                compile_(p, c)
+        return
+    caps = tapi.compile(plan, cfg, device="cpu").rebalancer.member_nnz_caps
+    want = japi.compile(jplan, jcfg).rebalancer.member_nnz_caps
+    assert caps == want and len(caps) == 3
 
 
 def test_compile_defaults_to_the_card(small_tensor, monkeypatch):
@@ -256,7 +300,12 @@ def test_launcher_on_cpu(capsys):
     assert "plan " in out and "| compile " in out and "| execute " in out
 
 
-def test_launcher_has_no_unported_flags():
-    for argv in (["--plan-cache", "x"], ["--store", "x"], ["--ckpt", "x"]):
+def test_launcher_has_no_unported_flags(tmp_path):
+    for argv in (["--plan-cache", "x"], ["--ckpt", "x"]):
         with pytest.raises(SystemExit):
             launcher.main(argv)
+    # --store is ported: the flag parses, and a directory that is no store
+    # is refused by the store itself
+    from repro_torch.store import StoreFormatError
+    with pytest.raises(StoreFormatError, match="not a tensor store"):
+        launcher.main(["--store", str(tmp_path), "--device", "cpu"])

@@ -2,7 +2,10 @@
 versions on the CPU, bitwise: the same f32 products, the same per-row order
 of additions (slot order, and on a tile's run of more than ``CHUNK_BLOCKS``
 blocks the fixed two-level order, which the plain versions follow too; on
-the card they do so under ``torch.use_deterministic_algorithms(True)``).
+the card their ``index_add_`` runs in slot order without the caller
+setting any flag, ``ref.slot_order_index_add``). Also on the card: the
+``ref`` EC's slot order end to end, the autotuner's cache key, and epoch
+streaming against the resident run.
 
 Marked ``gpu``: skipped where no card is present, which the fixture below
 decides at run time. Run on a GPU machine with
@@ -108,16 +111,14 @@ def test_kernel_degenerate_shards(cuda, variant, case):
 def test_kernel_long_runs(cuda, case, variant, num_buffers):
     """Runs of more than CHUNK_BLOCKS blocks, split into work items and
     combined: bitwise equal to the plain version on the CPU and on the card
-    (deterministic, index-order ``index_add_``), for every ring depth."""
+    (whose ``index_add_`` sums in slot order unasked), for every ring
+    depth."""
     part, factors, mode, dev = LONG_RUN[case]()
     kw = dict(dev=dev, mode=mode, num_buffers=num_buffers)
     _assert_kernel_equals_plain(part, factors, variant, cuda, **kw)
     got = _ec(part, factors, variant, cuda, **kw)
-    torch.use_deterministic_algorithms(True)
-    try:
-        ref = _ec(part, factors, variant, cuda, plain=True, **kw)
-    finally:
-        torch.use_deterministic_algorithms(False)
+    ref = _ec(part, factors, variant, cuda, plain=True, **kw)
+    assert not torch.are_deterministic_algorithms_enabled()
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
@@ -434,3 +435,172 @@ def test_measure_is_bitwise_off_on_one_card(cuda):
     for tm in solver.rebalance_timings:
         assert tm["probe_launches"] == {"ec_sorted": 3 * 4 * (1 + 2),
                                         "ec_fused": 0, "ec_blocked": 0}
+
+
+# -- the ref EC in slot order, the autotuner, epoch streaming ----------------
+
+def test_two_paper_runs_give_the_same_bits(cuda):
+    """``ref`` (the paper preset's EC) sums in slot order on the card, so
+    two runs give the same factors and fits, bitwise, with no flag set by
+    the caller; a caller's deterministic-algorithms setting is left as it
+    was."""
+    t = skewed_tensor()
+    cfg = api.preset("paper", {"rank": 8, "runtime.tol": 0.0,
+                               "runtime.num_devices": 1})
+    plan = api.plan(t, cfg)
+    runs = [api.compile(plan, cfg).run(3) for _ in range(2)]
+    assert not torch.are_deterministic_algorithms_enabled()
+    assert runs[0].fits == runs[1].fits
+    for a, b in zip(runs[0].factors, runs[1].factors):
+        np.testing.assert_array_equal(a, b)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        api.compile(plan, cfg).run(1)
+        assert torch.are_deterministic_algorithms_enabled()
+        assert torch.is_deterministic_algorithms_warn_only_enabled()
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def test_ref_equals_sorted_on_short_runs(cuda):
+    """On every tile whose run is at most CHUNK_BLOCKS blocks, ``ref`` and
+    ``ec_sorted`` give the same bits on the card."""
+    for seed in range(3):
+        part, factors = partitioned_case(3, 16, seed=seed, nnz=1200)
+        b2t = part.block_to_tile[0]
+        starts = np.flatnonzero(np.r_[True, b2t[1:] != b2t[:-1], True])
+        got = _ec(part, factors, "sorted", cuda)
+        ref = _ec(part, factors, "ref", cuda)
+        short = [int(b2t[a]) for a, b in zip(starts[:-1], starts[1:])
+                 if b - a <= _build.CHUNK_BLOCKS]
+        assert short
+        for tt in short:
+            rows = slice(tt * part.tile, (tt + 1) * part.tile)
+            assert torch.equal(got[rows], ref[rows])
+
+
+def test_measure_is_bitwise_off_under_paper(cuda):
+    """``schedule.rebalance="measure"`` under the paper preset (the ``ref``
+    EC) on 4 logical devices of one card: factors and fits bitwise those
+    of ``"off"``."""
+    t = skewed_tensor()
+    base = {"rank": 8, "runtime.tol": 0.0, "runtime.num_devices": 4,
+            "partition.strategy": "equal_nnz", "partition.replication": None,
+            "schedule.cadence": 1, "schedule.probe_repeats": 2}
+    runs = {}
+    for mode in ("off", "measure"):
+        cfg = api.preset("paper", {**base, "schedule.rebalance": mode})
+        with api.compile(api.plan(t, cfg), cfg, mesh=dm.cp_mesh(
+                4, 4, devices=["cuda:0"] * 4)) as solver:
+            runs[mode] = solver.run(4)
+    assert runs["measure"].fits == runs["off"].fits
+    for a, b in zip(runs["measure"].factors, runs["off"].factors):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_tuner_writes_a_gpu_key_to_the_ports_cache_only(cuda, tmp_path,
+                                                         monkeypatch):
+    from repro_torch.kernels import autotune as t_at
+    port, ref = tmp_path / "port.json", tmp_path / "ref.json"
+    ref.write_text('{"3m_r8_cpu_fused": {"tile": 8}}')
+    before = ref.read_bytes()
+    monkeypatch.setenv(t_at.ENV_CACHE, str(port))
+    monkeypatch.setenv("AMPED_AUTOTUNE_CACHE", str(ref))
+    monkeypatch.setattr(t_at, "_MEMO", {})
+    launched = dict(_build.LAUNCHES)
+    cfg = t_at.autotune_ec(3, 8, variant="sorted", nnz=1024, tiles=(8, 16),
+                           block_ps=(64,), repeats=2)
+    assert _build.LAUNCHES["ec_sorted"] - launched["ec_sorted"] == 4 * 3
+    key = f"3m_r8_float32_gpu_{t_at.device_kind_tag()}_sorted"
+    assert key.startswith("3m_r8_float32_gpu_nvidia-")
+    import json
+    entry = json.loads(port.read_text())[key]
+    assert (entry["tile"], entry["block_p"], entry["num_buffers"]) == \
+        (cfg.tile, cfg.block_p, cfg.num_buffers)
+    assert len(entry["timings"]) == 4 and min(entry["timings"].values()) > 0
+    assert ref.read_bytes() == before
+
+
+def _stream_case(tmp_path, layout):
+    from repro_torch.store import (TensorStore, build_plan_from_store,
+                                   split_mode_super_shards,
+                                   write_store_from_coo)
+    t = random_sparse((400, 300, 200), 12000, seed=7, dedup=False)
+    path = str(tmp_path / "w.store")
+    write_store_from_coo(t, path, chunk_nnz=1024)
+    plan = build_plan_from_store(TensorStore(path), 1, layout=layout)
+    budget = 2 * max(p.nnz_max for p in plan.modes) * 21 // 3
+    assert min(split_mode_super_shards(p, budget).num_shards
+               for p in plan.modes) >= 2
+    return plan, budget
+
+
+@pytest.mark.parametrize("preset", ["paper", "sorted", "fused", "optimized"])
+def test_streamed_equals_resident_on_card(cuda, tmp_path, preset):
+    """A tensor-store plan streamed in super-shards through pinned buffers
+    and a side stream: fits and factors bitwise those of the same plan run
+    resident, and the window kernels were launched."""
+    layout = "sorted" if preset == "sorted" else "blocked"
+    plan, budget = _stream_case(tmp_path, layout)
+    cfg = api.preset(preset, {"rank": 8, "runtime.tol": 0.0,
+                              "kernel.autotune": False,
+                              "partition.replication": 1})
+    with api.compile(plan, cfg) as solver:
+        resident = solver.run(3)
+    scfg = cfg.with_overrides({"runtime.streaming": True,
+                               "runtime.memory_budget": budget})
+    _build.reset_launch_counts()
+    with api.compile(plan, scfg) as solver:
+        streamed = solver.run(3)
+        report = solver.overlap_report()
+        windows = sum(sp.num_shards for sp in solver.stream_plans)
+    assert streamed.fits == resident.fits
+    for a, b in zip(streamed.factors, resident.factors):
+        np.testing.assert_array_equal(a, b)
+    if preset != "paper":
+        name = {"optimized": "ec_blocked"}.get(preset, f"ec_{preset}")
+        assert _build.LAUNCHES[name] == 3 * windows
+    assert report["peak_resident_bytes"] <= budget
+
+
+@pytest.mark.parametrize("variant", ["ref", "sorted", "fused", "blocked"])
+def test_window_pads_splitting_a_run_on_card(cuda, tmp_path, variant):
+    """A window whose 30 trailing pad blocks turn its last tile's 10-block
+    run into a 40-block one, split into work items: the accumulated
+    partial is the resident partial, bitwise, on the card."""
+    from repro_torch.store import (TensorStore, budget_slot_cap,
+                                   build_plan_from_store,
+                                   split_mode_super_shards,
+                                   write_store_from_coo)
+    rng = np.random.default_rng(5)
+    rows = np.concatenate([rng.integers(0, 8, 640), rng.integers(8, 16, 160)])
+    ind = np.stack([rows, rng.integers(0, 64, 800), rng.integers(0, 48, 800)],
+                   axis=1).astype(np.int32)
+    from repro_torch.core.coo import SparseTensor
+    path = str(tmp_path / "pads.store")
+    write_store_from_coo(SparseTensor(
+        ind, rng.standard_normal(800).astype(np.float32), (16, 64, 48)),
+        path, chunk_nnz=64)
+    layout = "sorted" if variant == "sorted" else "blocked"
+    plan = build_plan_from_store(TensorStore(path), 1, tile=8, block_p=16,
+                                 layout=layout)
+    part = plan.modes[0]
+    n_tiles = part.rows_max // part.tile
+    budget = next(b for b in range(4096, 1 << 20, 4)
+                  if budget_slot_cap(b, nmodes=3, n_tiles=n_tiles,
+                                     block_p=16) >= 640)
+    sp = split_mode_super_shards(part, budget)
+    assert sp.windows[0] == ((0, 1), (1, n_tiles)) and sp.nblocks == 40
+    mesh = dm.cp_mesh(1, 1, devices=[cuda])
+    f = [[torch.from_numpy(rng.normal(size=(p.padded_rows, 8)).astype(
+        np.float32)).to(cuda)] for p in plan.modes]
+    kw = dict(use_kernel=variant != "ref", variant=variant)
+    want = dm.make_mttkrp_fn(part, mesh, **kw).local(
+        dm.shard_plan_mode(part, mesh), f)[0]
+    acc = dm.zero_partials(part, mesh, 8)
+    pfn = dm.make_partial_mttkrp_fn(part, mesh, **kw)
+    streams = {cuda.index or 0: torch.cuda.Stream(device=cuda)}
+    for k in range(sp.num_shards):
+        placed = dm.shard_super_shard(part, sp, k, mesh, streams=streams)
+        acc = pfn(acc, placed.wait(), f)
+    assert torch.equal(acc[0], want)

@@ -292,16 +292,51 @@ def test_bf16_wire_merge_normalization(monkeypatch):
         comm.ExchangeSpec(wire_dtype="bfloat16", merge="psum_scatter")
 
 
-def test_overlap_chunk_autotune_raises_not_falls_back(monkeypatch):
+def test_overlap_chunk_autotune_raises_not_falls_back(monkeypatch,
+                                                      tmp_path):
+    """The chunk autotuner is ported. Without a plan and a mesh the spec
+    leaves the chunk unset, as the reference's does; with them it times
+    the candidates on the mesh; a candidate that fails raises instead of
+    falling back to a default."""
+    from repro_torch.comm import autotune as t_xchg
+    from repro_torch.kernels import autotune as t_at
     monkeypatch.delenv(comm.ENV_VARIANT, raising=False)
-    with pytest.raises(NotImplementedError, match="Autotuner"):
-        comm.resolve_exchange_spec(ExchangeConfig(variant="overlap",
-                                                  autotune_chunk=True))
+    monkeypatch.delenv(jcomm.collectives.ENV_VARIANT, raising=False)
+    monkeypatch.setenv(t_at.ENV_CACHE, str(tmp_path / "port.json"))
+    monkeypatch.setattr(t_xchg, "_MEMO", {})
+    cfg = ExchangeConfig(variant="overlap", autotune_chunk=True)
+    assert comm.resolve_exchange_spec(cfg).chunk_rows is \
+        jcomm.resolve_exchange_spec(cfg).chunk_rows is None
+    t = SparseTensor(*_tensor_arrays())
+    plan = t_build_plan(t, 4, replication=2)
+    mesh = cp_mesh(4, 2, devices=["cpu"] * 4)
+    rows = max(p.rows_max // p.r for p in plan.modes)
+    got = comm.resolve_exchange_spec(cfg, plan=plan, rank=8, mesh=mesh)
+    assert got.chunk_rows in jcomm_autotune_candidates(rows)
+
+    def broken(*a, **k):
+        raise RuntimeError("gather failed")
+    monkeypatch.setattr(t_xchg, "_MEMO", {})
+    monkeypatch.setenv(t_at.ENV_CACHE, "")
+    monkeypatch.setattr(t_xchg.collectives, "overlap_all_gather", broken)
+    with pytest.raises(RuntimeError, match="gather failed"):
+        comm.resolve_exchange_spec(cfg, plan=plan, rank=8, mesh=mesh)
     # an explicit chunk, or another variant, needs no autotuner
     assert comm.resolve_exchange_spec(ExchangeConfig(
         variant="overlap", autotune_chunk=True, chunk_rows=8)).chunk_rows == 8
     assert comm.resolve_exchange_spec(ExchangeConfig(
         variant="ring", autotune_chunk=True)).variant == "ring"
+
+
+def _tensor_arrays():
+    from repro_torch.core.coo import random_sparse
+    t = random_sparse((40, 30, 20), 1500, seed=7, distribution="zipf")
+    return t.indices, t.values, t.shape
+
+
+def jcomm_autotune_candidates(rows):
+    from repro.comm import autotune as j_xchg
+    return j_xchg._candidates(rows, j_xchg.DEFAULT_NUM_CHUNK_CANDIDATES)
 
 
 def test_core_exchange_shim_keeps_historical_default(monkeypatch):

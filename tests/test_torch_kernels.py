@@ -293,9 +293,24 @@ def test_kernel_kwargs_and_autotune(monkeypatch):
     assert ops.kernel_kwargs_from_config(KernelConfig(
         use_kernel=True, variant="sorted", num_buffers=3)) == dict(
         use_kernel=True, variant="sorted", num_buffers=3)
-    with pytest.raises(NotImplementedError, match="Autotuner"):
-        ops.kernel_kwargs_from_config(KernelConfig(
-            use_kernel=True, variant="fused", autotune=True))
+    # the autotuner is ported: with both packages' tuners patched to one
+    # winner, the ring depth resolves as the reference resolves it
+    # (explicit > tuned > default; no problem key: the default)
+    from repro.api.config import KernelConfig as JKernelConfig
+    from repro.kernels import autotune as j_at
+    from repro_torch.kernels import autotune as t_at
+    monkeypatch.setattr(j_at, "autotune_ec",
+                        lambda *a, **k: j_at.ECConfig(16, 64, 3))
+    monkeypatch.setattr(t_at, "autotune_ec",
+                        lambda *a, **k: t_at.ECConfig(16, 64, 3))
+    for kw in (dict(variant="fused"), dict(variant="sorted"),
+               dict(variant="fused", num_buffers=4), dict(variant="ref")):
+        for key in (dict(nmodes=3, rank=8), {}):
+            got = ops.kernel_kwargs_from_config(KernelConfig(
+                use_kernel=True, autotune=True, **kw), device="cpu", **key)
+            want = j_ops.kernel_kwargs_from_config(JKernelConfig(
+                use_kernel=True, autotune=True, **kw), **key)
+            assert got == want
 
 
 def test_smem_model_and_limit():

@@ -458,13 +458,42 @@ def test_on_migrates_replaces_and_keeps_the_fit():
 
 
 def test_memory_budget_with_rebalancer_is_unported(small_tensor):
+    """Ported: with ``runtime.memory_budget`` set, the rebalancer's member
+    caps are the store's streamed-slot budget per mode, the reference's
+    values, and a migration never lifts a member above its cap."""
+    import repro.api as japi
+    from repro_torch.store import budget_slot_cap
     cfg = tapi.paper({"runtime.memory_budget": 1 << 20,
                       "schedule.rebalance": "measure"})
     plan = tapi.plan(t_coo.SparseTensor(small_tensor.indices, small_tensor.values,
                                          small_tensor.shape), cfg, device="cpu")
-    with pytest.raises(NotImplementedError,
-                       match="Streaming and the store"):
-        tapi.compile(plan, cfg, device="cpu")
+    with tapi.compile(plan, cfg, device="cpu") as solver:
+        caps = solver.rebalancer.member_nnz_caps
+    jcfg = japi.paper({"runtime.memory_budget": 1 << 20,
+                       "schedule.rebalance": "measure"})
+    jsolver = japi.compile(japi.plan(small_tensor, jcfg), jcfg)
+    assert caps == jsolver.rebalancer.member_nnz_caps
+    jsolver.close()
+    for d, p in enumerate(plan.modes):
+        assert caps[d] == budget_slot_cap(
+            1 << 20, nmodes=3, n_tiles=p.rows_max // p.tile,
+            block_p=p.block_p, buffers=2)
+    jp, tp = _both_plans(skewed_tensor())
+    times = np.array([1.0, 2.0, 2.0, 8.0])
+    free = t_reb.plan_group_migrations(tp.modes[0], times,
+                                       migration_budget=0.3)
+    # a cap one block below the unclamped plan's largest member
+    cap = max(max(m.nnz_target) for m in free) - tp.modes[0].block_p
+    migs = t_reb.plan_group_migrations(tp.modes[0], times,
+                                       migration_budget=0.3,
+                                       max_member_nnz=cap)
+    jmigs = j_reb.plan_group_migrations(jp.modes[0], times,
+                                        migration_budget=0.3,
+                                        max_member_nnz=cap)
+    assert migs and [dataclasses.astuple(m) for m in migs] == \
+        [dataclasses.astuple(m) for m in jmigs]
+    for m in migs:
+        assert max(m.nnz_target) <= cap
 
 
 def test_launcher_rebalance_report(capsys):
