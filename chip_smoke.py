@@ -127,14 +127,43 @@ Phases, each of which exits non-zero on failure:
    product and one EC's measured workspace; on 4 logical devices below
    the resident peak. ``ec_sorted`` must have
    launched once per window, device and sweep.
-11. Summary: one JSON line ``{"kernels": [...]}`` (``ms``, ``plain_ms`` and
+11. Operations, on the main path's plan (R 32, ``sorted``, tile 8,
+   block_p 128, one device). (a) Plan cache: the plan saved with
+   ``api.save_plan`` under its ``plan_signature`` and loaded back by
+   ``api.plan(..., cache_dir=)`` (one hit), every array bitwise equal,
+   save and load seconds; then the lazy store plan of phase 3, whose load
+   reads no chunk. (b) Checkpoints: 4 sweeps with
+   ``runtime.checkpoint_dir``; a fresh solver restores sweep 2 and runs
+   to 4, within 1e-6 (fits) and 1e-5 (factors) of the uninterrupted run
+   (the reference's resume tolerances); then phase 6's r = 2 plan on 4
+   logical devices checkpoints 2 sweeps, which a one-device solver
+   restores — factors and lam bitwise those saved — and the next fit
+   does not fall. (c) The BLCO-style baseline (``core/baselines.py``):
+   per mode, the tensor streamed from the host in chunks of 65,536
+   nonzeros through one card, its H2D and EC seconds (CUDA events) beside
+   the mode's ``ec_sorted`` ms of phase 4, within 1e-4·max of the plain
+   MTTKRP of the whole tensor on the card. (d) 4 sweeps with
+   ``runtime.trace=True``: fits bitwise the main path's, the trace valid
+   (``repro_torch.obs.validate_trace``, 95 % coverage) with 1 run, 4
+   sweeps and 12 each of ``mode_update``, ``ec`` and ``exchange``; each
+   span's total and median ms over sweeps 2-4. (e) Sweeps 2-4 of an
+   untraced run under ``torch.profiler`` (CPU and CUDA): the device's
+   busy share of the window (the union of kernel and copy intervals), the
+   five longest device operations and the five longest idle gaps with the
+   host scopes open during each; if the profiler shows no device time it
+   says so and times the stages with CUDA events instead, and prints no
+   busy share. Then the traced against the untraced steady sweep. Counts
+   are set to 0 just before each run and read just after: ``ec_sorted``
+   once per mode, device and sweep.
+12. Summary: one JSON line ``{"kernels": [...]}`` (``ms``, ``plain_ms`` and
    ``bound_ms`` summed over the three modes, i.e. one sweep's launches;
    ``launches`` from the main-path run, ``multi_device_launches`` from the
    multi-device path's, ``rebalance_launches`` from the rebalance phase's
    ``"measure"`` and ``"on"`` runs, of which ``rebalance_probe_launches``
    were counted around the probes; ``tuner_launches`` the EC autotuner's
-   candidate runs, ``preset_launches`` the tuned presets' runs and
-   ``stream_launches`` the streamed windows'), the card's name and power
+   candidate runs, ``preset_launches`` the tuned presets' runs,
+   ``stream_launches`` the streamed windows' and ``operations_launches``
+   phase 11's runs), the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``. With ``--out PATH``
    every per-mode number also goes to a JSON file.
 """
@@ -1008,11 +1037,16 @@ def replicas_equal(state) -> bool:
 
 def store_phase(tensor, tmp: str):
     """The end of phase 3: the data tensor written to a tensor store with
-    the port's writer."""
+    the port's writer, in chunks of 2^20 nonzeros — or, for a tensor of
+    fewer than 16 of those (a small ``--scale``), of the largest power of
+    two under nnz/16, so that phase 10's budget still holds one chunk's
+    staging."""
     from repro_torch.store import TensorStore, write_store_from_coo
     path = os.path.join(tmp, "amazon.store")
+    chunk_nnz = 1 << min(20, max(12, int(np.log2(max(tensor.nnz // 16,
+                                                         1)))))
     t0 = time.perf_counter()
-    write_store_from_coo(tensor, path)
+    write_store_from_coo(tensor, path, chunk_nnz=chunk_nnz)
     write_s = time.perf_counter() - t0
     store = TensorStore(path)
     size = sum(os.path.getsize(os.path.join(path, f))
@@ -1475,6 +1509,491 @@ def streaming_phase(api, store, paper_plan, paper_res, cards: int) -> dict:
     return out
 
 
+OPS_SWEEPS = 4          # checkpoint, traced and profiled runs
+OPS_RESTORE_AT = 2      # the sweep a fresh solver restores
+CKPT_FIT_TOL = 1e-6     # the reference's resume tolerances
+CKPT_FACTOR_TOL = 1e-5  # (tests/test_mttkrp_als.py)
+BASELINE_CHUNK = 1 << 16  # blco_like_streaming's default
+BASELINE_RTOL = 1e-4
+TRACE_COVERAGE = 0.95
+TOP = 5
+DEVICE_WORK = {"kernel", "gpu_memcpy", "gpu_memset"}
+HOST_SCOPES = {"cpu_op", "user_annotation", "cuda_runtime", "cuda_driver"}
+
+
+def counted_run(solver, sweeps: int, devices: int, label: str,
+                launched: dict) -> object:
+    """``solver.run(sweeps)`` with the launch counts set to 0 just before
+    and read just after: ``ec_sorted`` must have launched once per mode,
+    device and sweep run; the counts are added to ``launched``."""
+    from repro_torch.kernels import _build
+    nmodes = solver.plan.nmodes
+    before = solver.state.sweep
+    sync_all()
+    _build.reset_launch_counts()
+    res = solver.run(sweeps)
+    sync_all()
+    want = nmodes * devices * (sweeps - before)
+    if _build.LAUNCHES["ec_sorted"] != want:
+        fail(f"{label}: ec_sorted launched {_build.LAUNCHES['ec_sorted']} "
+             f"times, expected {want}")
+    for k, n in _build.LAUNCHES.items():
+        launched[k] += n
+    return res
+
+
+def plan_arrays_equal(a, b) -> bool:
+    from repro_torch.core.partition import ModePartition
+    if tuple(a.shape) != tuple(b.shape) or a.norm != b.norm or \
+            a.num_devices != b.num_devices:
+        return False
+    for d, (pa, pb) in enumerate(zip(a.modes, b.modes)):
+        if any(getattr(pa, k) != getattr(pb, k)
+               for k in ModePartition.META_FIELDS):
+            return False
+        arrays = [(a.global_to_padded[d], b.global_to_padded[d]),
+                  (a.padded_to_global[d], b.padded_to_global[d])]
+        if getattr(pa, "lazy", False):
+            arrays.append((pa.rows_owned, pb.rows_owned))
+        else:
+            arrays += [(getattr(pa, k), getattr(pb, k))
+                       for k in ModePartition.ARRAY_FIELDS]
+        if not all(x.dtype == y.dtype and np.array_equal(x, y)
+                   for x, y in arrays):
+            return False
+    return True
+
+
+def plan_cache_case(api, tensor, plan, cfg, store, tmp: str) -> dict:
+    """(a) The main path's plan saved into a plan cache and loaded back by
+    ``api.plan(..., cache_dir=)``; then the lazy store plan of phase 3."""
+    from repro_torch.store import TensorStore
+    out = {}
+    for label, src, p in (("in-memory", tensor, plan),
+                          ("lazy store", store, None)):
+        cache = os.path.join(tmp, f"plans-{label.replace(' ', '-')}")
+        if p is None:
+            p = api.plan(src, cfg)
+        sig = api.plan_signature(src, cfg)
+        t0 = time.perf_counter()
+        api.save_plan(p, os.path.join(cache, sig[:32]), signature=sig)
+        save_s = time.perf_counter() - t0
+        disk = sum(os.path.getsize(os.path.join(root, f))
+                   for root, _, files in os.walk(cache) for f in files)
+        if p is not plan:
+            src = TensorStore(store.path)  # fresh counts of chunk reads
+        api.reset_cache_stats()
+        t0 = time.perf_counter()
+        back = api.plan(src, cfg, cache_dir=cache)
+        load_s = time.perf_counter() - t0
+        hit = api.CACHE_STATS == {"hits": 1, "misses": 0}
+        if not hit:
+            fail(f"plan cache ({label}): {api.CACHE_STATS}, expected one hit")
+        if not plan_arrays_equal(back, p):
+            fail(f"plan cache ({label}): the loaded plan is not the saved "
+                 f"one, bitwise")
+        reads = None
+        if p is not plan:
+            reads = back.modes[0].store.access_stats["chunk_reads"]
+            if reads:
+                fail(f"plan cache ({label}): loading read {reads} chunks")
+        print(f"plan cache ({label}): saved in {save_s:.3f} s "
+              f"({disk / 2**20:.1f} MiB on disk), loaded through "
+              f"api.plan(cache_dir=) in {load_s:.3f} s (cache hit); every "
+              f"array bitwise equal"
+              + ("; 0 chunk reads" if reads is not None else ""),
+              flush=True)
+        out[label] = {"save_s": save_s, "load_s": load_s, "disk_bytes": disk}
+        del back
+        shutil.rmtree(cache, ignore_errors=True)
+    return out
+
+
+def checkpoint_case(api, plan, cfg, kept, tmp: str, cards: int,
+                    launched: dict) -> dict:
+    """(b) 4 checkpointed sweeps; a fresh solver restored at sweep 2 and
+    run to 4; then the r = 2 checkpoint from 4 logical devices restored
+    into a one-device solver."""
+    from repro_torch.core import mttkrp
+    from repro_torch.training import CheckpointManager
+    ck = os.path.join(tmp, "ckpt")
+    ccfg = cfg.with_overrides({"runtime.checkpoint_dir": ck})
+    with api.compile(plan, ccfg) as solver:
+        full = counted_run(solver, OPS_SWEEPS, 1, "checkpointed run",
+                           launched)
+        t0 = time.perf_counter()
+        solver.checkpoint()  # sweep 4 again: the save alone, timed
+        save_s = time.perf_counter() - t0
+    with api.compile(plan, ccfg) as solver:
+        t0 = time.perf_counter()
+        if not solver.restore(OPS_RESTORE_AT):
+            fail(f"no checkpoint of sweep {OPS_RESTORE_AT} in {ck}")
+        restore_s = time.perf_counter() - t0
+        resumed = counted_run(solver, OPS_SWEEPS, 1, "resumed run", launched)
+    fit_err = float(np.abs(np.asarray(resumed.fits)
+                           - np.asarray(full.fits)).max())
+    factor_err = max(float(np.abs(a - b).max())
+                     for a, b in zip(resumed.factors, full.factors))
+    print(f"checkpoint: {OPS_SWEEPS} sweeps checkpointed (save "
+          f"{save_s:.3f} s); a fresh solver restored sweep "
+          f"{OPS_RESTORE_AT} in {restore_s:.3f} s and ran to {OPS_SWEEPS}: "
+          f"max |fit diff| {fit_err:.2e}, max |factor diff| "
+          f"{factor_err:.2e}", flush=True)
+    if fit_err > CKPT_FIT_TOL or factor_err > CKPT_FACTOR_TOL:
+        fail(f"resumed run off the uninterrupted one: fits {fit_err:.2e} "
+             f"(limit {CKPT_FIT_TOL}), factors {factor_err:.2e} (limit "
+             f"{CKPT_FACTOR_TOL})")
+    kcfg, kplan = kept
+    r = kplan.modes[0].r
+    mesh = mttkrp.cp_mesh(MD_DEVICES, r, devices=[
+        f"cuda:{k % cards}" for k in range(MD_DEVICES)])
+    ck4 = os.path.join(tmp, "ckpt4")
+    with api.compile(kplan, kcfg.with_overrides(
+            {"runtime.checkpoint_dir": ck4}), mesh=mesh) as solver:
+        counted_run(solver, OPS_RESTORE_AT, MD_DEVICES,
+                    f"r={r} x{MD_DEVICES} checkpointed run", launched)
+    saved = CheckpointManager(ck4).restore(OPS_RESTORE_AT)
+    with api.compile(plan, cfg.with_overrides(
+            {"runtime.checkpoint_dir": ck4})) as solver:
+        t0 = time.perf_counter()
+        if not solver.restore(OPS_RESTORE_AT):
+            fail(f"the {MD_DEVICES}-device checkpoint did not restore")
+        elastic_s = time.perf_counter() - t0
+        got = solver.result()
+        if not all(np.array_equal(a, b) for a, b in
+                   zip(got.factors, saved["factors"])) or \
+                not np.array_equal(got.lam, saved["lam"]):
+            fail("the restored factors are not the saved ones, bitwise")
+        nxt = counted_run(solver, OPS_RESTORE_AT + 1, 1,
+                          "one-device run after the elastic restore",
+                          launched)
+    before, after = float(saved["fits"][-1]), float(nxt.fits[-1])
+    print(f"elastic restore: the r={r} checkpoint of {MD_DEVICES} logical "
+          f"devices (sweep {OPS_RESTORE_AT}) restored into a one-device "
+          f"solver in {elastic_s:.3f} s, factors and lam bitwise those "
+          f"saved; fit {before:.6f} -> {after:.6f} after one more sweep",
+          flush=True)
+    if after < before - FIT_TOL:
+        fail(f"the fit fell after the elastic restore: {before} -> {after}")
+    return {"save_s": save_s, "restore_s": restore_s,
+            "elastic_restore_s": elastic_s, "max_fit_diff": fit_err,
+            "max_factor_diff": factor_err, "elastic_fits": [before, after]}
+
+
+def baseline_case(tensor, recs) -> list[dict]:
+    """(c) ``blco_like_streaming`` per mode at its default chunk, held
+    against the plain MTTKRP of the whole tensor on the card."""
+    import torch
+    from repro_torch.core.baselines import blco_like_streaming
+    from repro_torch.kernels.ref import mttkrp_local_ref
+    rng = np.random.default_rng(2)
+    factors = [torch.from_numpy(rng.uniform(0.1, 1.0, size=(s, 32)).astype(
+        np.float32)).cuda() for s in tensor.shape]
+    indices = torch.from_numpy(tensor.indices).cuda()
+    values = torch.from_numpy(tensor.values).cuda()
+    out = []
+    for mode in range(tensor.nmodes):
+        t0 = time.perf_counter()
+        got, times = blco_like_streaming(tensor, factors, mode,
+                                         chunk=BASELINE_CHUNK)
+        sync_all()
+        wall = time.perf_counter() - t0
+        plain = mttkrp_local_ref(indices, values, indices[:, mode], factors,
+                                 mode, tensor.shape[mode])
+        err = float((got - plain).abs().max() / plain.abs().max())
+        ec_ms = recs["ec_sorted"][mode]["ms"]
+        print(f"baseline mode {mode}: {times['chunks']} chunks of "
+              f"{BASELINE_CHUNK}; h2d {times['h2d_s']:.3f} s, EC "
+              f"{times['ec_s']:.3f} s (CUDA events), wall {wall:.2f} s "
+              f"(host sort and pads included); ec_sorted on the resident "
+              f"shard {ec_ms:.3f} ms; max|baseline - plain| / max|plain| "
+              f"{err:.2e}", flush=True)
+        if err > BASELINE_RTOL:
+            fail(f"baseline mode {mode}: relative error {err:.2e} > "
+                 f"{BASELINE_RTOL}")
+        out.append({**times, "wall_s": wall, "rel_err": err,
+                    "ec_sorted_ms": ec_ms})
+        del got, plain
+    del indices, values, factors
+    torch.cuda.empty_cache()
+    return out
+
+
+def span_sweep(records) -> dict:
+    """Each record's id → the ``sweep`` attribute of its sweep span (None
+    outside a sweep)."""
+    by_id = {r["id"]: r for r in records}
+
+    def sweep_of(r):
+        while r is not None:
+            if r["name"] == "sweep":
+                return r["attrs"]["sweep"]
+            r = by_id.get(r["parent"])
+        return None
+
+    return {r["id"]: sweep_of(r) for r in records}
+
+
+def traced_case(api, plan, cfg, fits, tmp: str, launched: dict) -> dict:
+    """(d) 4 traced sweeps: fits bitwise the main path's, the trace valid
+    at 95 % coverage with the expected span counts; per span name the
+    total and median ms over sweeps 2-4."""
+    from repro_torch import obs
+    from repro_torch.obs.export import validate_trace
+    obs.reset()
+    tcfg = cfg.with_overrides({"runtime.trace": True})
+    try:
+        with api.compile(plan, tcfg) as solver:
+            res = counted_run(solver, OPS_SWEEPS, 1, "traced run", launched)
+            trace = solver.dump_trace(os.path.join(tmp, "trace.json"))
+        records = obs.trace.get_tracer().records()
+    finally:
+        obs.reset()  # the tracer is process-wide: off for what follows
+    if not np.array_equal(np.asarray(res.fits), fits[:OPS_SWEEPS]):
+        fail(f"traced fits {res.fits} are not the untraced "
+             f"{fits[:OPS_SWEEPS].tolist()}, bitwise")
+    check = validate_trace(trace, min_coverage=TRACE_COVERAGE)
+    counts = check["span_counts"]
+    want = {"run": 1, "sweep": OPS_SWEEPS,
+            **{n: plan.nmodes * OPS_SWEEPS
+               for n in ("mode_update", "ec", "exchange")}}
+    if not check["ok"] or any(counts.get(k) != v for k, v in want.items()):
+        fail(f"trace: {check['problems']}; span counts {counts}, expected "
+             f"{want}")
+    sweep_of = span_sweep(records)
+    steady = {}
+    for r in records:
+        if (sweep_of[r["id"]] or 0) >= 2:
+            steady.setdefault(r["name"], []).append(1e3 * (r["t1"] - r["t0"]))
+    stats = {n: {"total_ms": float(sum(v)), "median_ms": float(np.median(v)),
+                 "count": len(v)} for n, v in sorted(steady.items())}
+    print(f"traced run: fits bitwise the untraced run's; trace valid, "
+          f"coverage {check['coverage']:.1%}, spans {counts}", flush=True)
+    for n, st in stats.items():
+        print(f"  span {n}: {st['count']} over sweeps 2-{OPS_SWEEPS}, total "
+              f"{st['total_ms']:.3f} ms, median {st['median_ms']:.3f} ms",
+              flush=True)
+    return {"coverage": check["coverage"], "span_counts": counts,
+            "steady_spans": stats,
+            "traced_sweep_ms": stats["sweep"]["median_ms"]}
+
+
+def _merged(intervals):
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def is_device_work(category) -> bool:
+    """Kernels and copies on the card, by their category in the
+    profiler's Chrome trace (device-side annotation ranges and
+    synchronisation records are not work)."""
+    return category in DEVICE_WORK
+
+
+def _device_time_total(prof) -> float:
+    return sum(getattr(e, "device_time_total", 0)
+               or getattr(e, "cuda_time_total", 0)
+               for e in prof.key_averages())
+
+
+def profiled_events(solver, first: int, sweeps: int, tmp: str, *,
+                    with_stack: bool = False):
+    """Sweeps ``first`` .. ``first + sweeps - 1`` of ``solver`` under
+    ``torch.profiler`` (CPU and CUDA activities), each in a
+    ``record_function`` scope, all in one ``profiled_window`` that ends in
+    a synchronise. Returns ``(events, None)`` — ``(name, start_ns,
+    end_ns, category)`` from the profiler's Chrome trace, whose CPU and
+    device times share one clock — or ``(None, why)`` when the profiler
+    shows no device time or fails."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     with_stack=with_stack) as prof:
+            with record_function("profiled_window"):
+                for k in range(first, first + sweeps):
+                    with record_function(f"sweep {k}"):
+                        solver.sweep()
+                sync_all()
+    except RuntimeError as e:
+        return None, f"torch.profiler failed: {e}"
+    if _device_time_total(prof) <= 0:
+        return None, "key_averages() shows no device time"
+    path = os.path.join(tmp, "profile.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        spans = [e for e in json.load(f)["traceEvents"]
+                 if e.get("ph") == "X" and "dur" in e]
+    os.remove(path)
+    print(f"profiler: event categories "
+          f"{sorted({str(e.get('cat')) for e in spans})}; counted as busy "
+          f"{sorted(DEVICE_WORK)}", flush=True)
+    return [(e["name"], int(1e3 * float(e["ts"])),
+             int(1e3 * (float(e["ts"]) + float(e["dur"]))), e.get("cat"))
+            for e in spans], None
+
+
+def timeline(events, host_scopes) -> dict:
+    """The device's busy share of the ``profiled_window`` (the union of
+    kernel and copy intervals), the longest device operations by name, the
+    longest idle gaps with the host scopes open at their midpoints, and
+    all idle time summed by scope: the innermost ``repro_torch`` frame
+    when the trace has Python stacks, else the innermost host scope."""
+    cpu = [e for e in events if e[3] in host_scopes]
+    dev = [e for e in events if is_device_work(e[3])]
+    w0, w1 = next((a, b) for n, a, b, _ in cpu if n == "profiled_window")
+    busy = _merged([(max(a, w0), min(b, w1))
+                    for _, a, b, _ in dev if b > w0 and a < w1])
+    busy_ns = sum(b - a for a, b in busy)
+    ops = {}
+    for n, a, b, _ in dev:
+        o = ops.setdefault(n, [0.0, 0])
+        o[0] += (b - a) / 1e6
+        o[1] += 1
+    edges = [w0] + [x for ab in busy for x in ab] + [w1]
+    gaps = sorted(((edges[i + 1] - edges[i], edges[i], edges[i + 1])
+                   for i in range(0, len(edges) - 1, 2)
+                   if edges[i + 1] > edges[i]), reverse=True)
+
+    def scopes(t):
+        """The host scopes open at time ``t``, innermost first."""
+        return [n for _, n in sorted((b - a, n) for n, a, b, _ in cpu
+                                     if a <= t <= b
+                                     and n != "profiled_window")]
+
+    idle = {}
+    for g, a, b in gaps:
+        open_ = scopes((a + b) // 2)
+        key = next((n for n in open_ if "repro_torch" in n),
+                   open_[0] if open_ else "(no host op)")
+        idle[key] = idle.get(key, 0.0) + g / 1e6
+    return {
+        "window_ms": (w1 - w0) / 1e6, "busy_ms": busy_ns / 1e6,
+        "busy_share": busy_ns / (w1 - w0), "gap_count": len(gaps),
+        "top_ops": [{"name": n, "ms": ms, "count": c} for n, (ms, c) in
+                    sorted(ops.items(), key=lambda kv: -kv[1][0])[:TOP]],
+        "gaps": [{"ms": g / 1e6,
+                  "scope": " < ".join(scopes((a + b) // 2)[:3])
+                  or "(no host op)"} for g, a, b in gaps[:TOP]],
+        "idle_by_scope": [{"scope": k, "ms": v} for k, v in
+                          sorted(idle.items(), key=lambda kv: -kv[1])[:TOP]],
+    }
+
+
+def print_idle(t: dict, label: str) -> None:
+    for g in t["gaps"]:
+        print(f"  idle gap {g['ms']:8.3f} ms under {g['scope'][:160]}",
+              flush=True)
+    print(f"  idle time by {label} ({t['gap_count']} gaps, "
+          f"{t['window_ms'] - t['busy_ms']:.3f} ms in all):", flush=True)
+    for g in t["idle_by_scope"]:
+        print(f"    {g['ms']:8.3f} ms  {g['scope'][:160]}", flush=True)
+
+
+def profile_case(api, plan, cfg, tmp: str, launched: dict) -> dict:
+    """(e) Sweeps 2-4 of an untraced run under ``torch.profiler``: the
+    device's busy share, the longest device operations and idle gaps, and
+    the idle time by host scope; then sweep 5 with Python stacks, for the
+    ``repro_torch`` function each idle gap falls under (stack sampling
+    slows the host, so that sweep gives no busy share). Then the traced
+    against the untraced sweep on this one solver, tracing switched per
+    sweep in turns (plain, traced, traced, plain, twice over), each sweep
+    timed by the host clock to a synchronise."""
+    from repro_torch import obs
+    from repro_torch.kernels import _build
+    out = {}
+    with api.compile(plan, cfg) as solver:
+        counted_run(solver, 1, 1, "untraced run (sweep 1)", launched)
+        _build.reset_launch_counts()
+        events, why = profiled_events(solver, 2, OPS_SWEEPS - 1, tmp)
+        swept = OPS_SWEEPS - 1
+        if why is None:
+            t = timeline(events, HOST_SCOPES)
+            out.update(method="torch.profiler", **t)
+            print(f"method: torch.profiler (CPU + CUDA activities); device "
+                  f"busy share of sweeps 2-{OPS_SWEEPS} = "
+                  f"{t['busy_share']:.1%} ({t['busy_ms']:.3f} ms busy in a "
+                  f"{t['window_ms']:.3f} ms window: the union of kernel and "
+                  f"copy intervals)", flush=True)
+            for o in t["top_ops"]:
+                print(f"  device op {o['ms']:9.3f} ms x{o['count']:4d}  "
+                      f"{o['name'][:100]}", flush=True)
+            print_idle(t, "innermost host scope")
+            events, _ = profiled_events(solver, OPS_SWEEPS + 1, 1, tmp,
+                                        with_stack=True)
+            swept += 1
+            if events is not None:
+                st = timeline(events, HOST_SCOPES | {"python_function"})
+                out["stacks"] = {k: st[k] for k in
+                                 ("window_ms", "busy_ms", "gap_count",
+                                  "gaps", "idle_by_scope")}
+                print(f"sweep {OPS_SWEEPS + 1} with Python stacks (a slower "
+                      f"host): {st['window_ms']:.3f} ms, "
+                      f"{st['busy_ms']:.3f} ms busy", flush=True)
+                print_idle(st, "innermost repro_torch function")
+        else:
+            print(f"profiler: {why}; device busy share not measured; "
+                  f"falling back to CUDA-event stage times", flush=True)
+            stages = stage_ms(solver)
+            print(f"method: CUDA events per stage; per mode EC ms "
+                  f"{[round(x['ec_ms'], 3) for x in stages]}, exchange ms "
+                  f"{[round(x['exchange_ms'], 3) for x in stages]}",
+                  flush=True)
+            out.update(method="cuda events", reason=why, stages=stages)
+        walls = {"plain": [], "traced": []}
+        try:
+            for mode in ("plain", "traced", "traced", "plain") * 2:
+                (obs.trace.enable if mode == "traced"
+                 else obs.trace.disable)()
+                sync_all()
+                t0 = time.perf_counter()
+                solver.sweep()
+                sync_all()
+                walls[mode].append(1e3 * (time.perf_counter() - t0))
+        finally:
+            obs.reset()
+        swept += 8
+        want = plan.nmodes * swept
+        if _build.LAUNCHES["ec_sorted"] != want:
+            fail(f"phase (e) launched ec_sorted "
+                 f"{_build.LAUNCHES['ec_sorted']} times in {swept} sweeps")
+        for k, n in _build.LAUNCHES.items():
+            launched[k] += n
+    out["sweep_ms"] = walls
+    print(f"sweeps in turns on one solver (host clock to a synchronise): "
+          f"untraced {[round(w, 3) for w in walls['plain']]} ms, traced "
+          f"{[round(w, 3) for w in walls['traced']]} ms", flush=True)
+    return out
+
+
+def operations_phase(api, tensor, plan, cfg, store, kept, fits, recs,
+                     tmp: str, cards: int) -> dict:
+    """Phase 11: the plan cache, checkpoints and an elastic restore, the
+    BLCO-style baseline, traced sweeps and the device's busy share, on the
+    main path's amazon plan (R 32, ``sorted``, tile 8, block_p 128)."""
+    launched = {k: 0 for k in KERNELS}
+    out = {"plan_cache": plan_cache_case(api, tensor, plan, cfg, store,
+                                         tmp)}
+    out["checkpoint"] = checkpoint_case(api, plan, cfg, kept, tmp, cards,
+                                        launched)
+    out["baseline"] = baseline_case(tensor, recs)
+    out["traced"] = traced_case(api, plan, cfg, fits, tmp, launched)
+    out["profile"] = profile_case(api, plan, cfg, tmp, launched)
+    walls = out["profile"]["sweep_ms"]
+    print(f"steady sweep: traced {np.median(walls['traced']):.3f} ms vs "
+          f"untraced {np.median(walls['plain']):.3f} ms (medians of 4, in "
+          f"turns); the traced run's sweep spans "
+          f"{out['traced']['traced_sweep_ms']:.3f} ms (median, sweeps "
+          f"2-{OPS_SWEEPS})", flush=True)
+    out["launches"] = launched
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=3e-2,
@@ -1616,12 +2135,16 @@ def run_phases(args, api, kind: str, smi: str, tmp: str) -> None:
 
     phase("presets")
     presets = presets_phase(api, store, plan, fits, kept, args.cards)
-    del kept
 
     phase("streaming")
     stream = streaming_phase(api, store, paper_plan, paper_res,
                              args.cards)
-    del paper_plan, paper_res, store
+    del paper_plan, paper_res
+
+    phase("operations")
+    ops = operations_phase(api, tensor, plan, cfg, store, kept, fits, recs,
+                           tmp, args.cards)
+    del kept, store
 
     phase("summary")
     kernels = []
@@ -1647,6 +2170,9 @@ def run_phases(args, api, kind: str, smi: str, tmp: str) -> None:
             # every window of the streamed runs (one and four devices)
             "stream_launches": sum(stream[c]["launches"][name]
                                    for c in ("sorted", "paper", "md")),
+            # the operations phase's checkpointed, restored, traced and
+            # profiled runs
+            "operations_launches": ops["launches"][name],
             "max_abs_err": max(x["max_abs_err"] for x in r),
             "ms": sum(x["ms"] for x in r),
             "plain_ms": sum(x["plain_ms"] for x in r),
@@ -1674,7 +2200,7 @@ def run_phases(args, api, kind: str, smi: str, tmp: str) -> None:
               "sweep_wall_s": walls,
               "per_mode": recs, "multi_device": md, "rebalance": rb,
               "store": st, "ref_order": ref_rec, "presets": presets,
-              "streaming": stream,
+              "streaming": stream, "operations": ops,
               "kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -2,10 +2,7 @@
 
 The port's copy of the reference package's ``api/config.py``: the same five
 sections, fields, defaults, presets and dotted overrides, so a config
-round-trips through JSON between the two packages. Sections the port does
-not run yet keep their fields; ``api.compile`` raises
-``NotImplementedError`` naming the ROADMAP item when a config asks for one
-of them (checkpointing, tracing).
+round-trips through JSON between the two packages.
 
 A :class:`DecomposeConfig` is a frozen composition of five orthogonal
 sub-configs, mirroring the stages of the AMPED pipeline:
@@ -199,8 +196,9 @@ class RuntimeConfig:
     """Execution environment: devices, fault tolerance, convergence.
 
     ``streaming``/``memory_budget``/``stream_*`` select epoch-streaming
-    execution of a tensor-store plan; ``trace`` asks for the reference's
-    span tracer, which the port does not run yet."""
+    execution of a tensor-store plan; ``checkpoint_dir`` makes the solver
+    checkpoint every sweep (and ``restore`` read from there); ``trace``
+    turns on the process-wide span tracer (:mod:`repro_torch.obs`)."""
 
     num_devices: int | None = None  # None = the visible cards (CPU: 1)
     checkpoint_dir: str | None = None
@@ -261,6 +259,29 @@ class DecomposeConfig:
     @classmethod
     def from_json(cls, s: str) -> "DecomposeConfig":
         return cls.from_dict(json.loads(s))
+
+    # -- legacy bridge -------------------------------------------------------
+    @classmethod
+    def from_legacy_kwargs(
+        cls, *, rank: int = 32, num_devices: int | None = None,
+        strategy: Strategy = "amped_cdf", replication: int | None = None,
+        tol: float = 1e-5, seed: int = 0, use_kernel: bool = False,
+        kernel_variant: str | None = None, num_buffers: int | None = None,
+        autotune: bool = False, ring: bool = True,
+        checkpoint_dir: str | None = None,
+    ) -> "DecomposeConfig":
+        """Build a config from the historical ``cp_decompose`` kwargs."""
+        return cls(
+            rank=rank,
+            partition=PartitionConfig(strategy=strategy,
+                                      replication=replication),
+            kernel=KernelConfig(use_kernel=use_kernel, variant=kernel_variant,
+                                num_buffers=num_buffers, autotune=autotune),
+            exchange=ExchangeConfig(ring=ring),
+            runtime=RuntimeConfig(num_devices=num_devices,
+                                  checkpoint_dir=checkpoint_dir,
+                                  tol=tol, seed=seed),
+        )
 
     # -- dotted overrides -----------------------------------------------------
     def with_overrides(self, overrides: Mapping[str, Any]) -> "DecomposeConfig":

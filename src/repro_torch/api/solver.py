@@ -1,6 +1,6 @@
 """Execute layer: ``compile(plan, config) -> CPSolver``.
 
-The untraced subset of the reference package's ``api/solver.py``. A
+The counterpart of the reference package's ``api/solver.py``. A
 :class:`CPSolver` owns the mesh, the per-mode shards placed on its logical
 devices (held through a :class:`~repro_torch.sparse.stream.ShardStreamer`,
 which also re-places rebalanced shards in the background), the resolved
@@ -8,15 +8,23 @@ exchange spec, the per-mode ALS updates and the current
 :class:`~repro_torch.core.als.ALSState`:
 
     solver = api.compile(plan, cfg)             # on cuda:0..M-1 unless told
+    solver.restore()            # optional: elastic resume from checkpoints
     result = solver.run(iters)                  # CPResult — or solver.sweep()
     solver.close()                              # joins the streamer's thread
 
 ``compile(plan, cfg, mesh=cp_mesh(4, r, devices=["cuda:0"] * 4))`` places
 four logical devices on one card; ``device="cpu"`` runs every logical
 device on the CPU. ``load_state`` installs GLOBAL-layout factors and
-``lam`` — for instance a reference ``CPResult``'s, or the factors of a
-reference checkpoint — onto every replica, so a run carries over between
-the packages.
+``lam`` — for instance a reference ``CPResult``'s — onto every replica, so
+a run carries over between the packages.
+
+With ``runtime.checkpoint_dir`` the solver owns a
+:class:`~repro_torch.training.CheckpointManager` and ``run`` checkpoints
+after every sweep. ``checkpoint()`` saves replica 0's factors in the
+GLOBAL layout (on the host, in the reference's on-disk format), and
+``restore()`` installs them through ``load_state`` onto every replica of
+THIS plan's layout: a checkpoint written under any device count — or by
+the reference package — restores here.
 
 With ``kernel.autotune`` the ring depth is the tuned winner's (tuned on the
 mesh's first device), and with ``exchange.autotune_chunk`` an ``overlap``
@@ -40,28 +48,49 @@ incremental plan update that changes no array's shape; the streamer then
 places the moved modes' shards anew in the background. With
 ``runtime.memory_budget`` set, migrations stay inside the streamed-slot
 budget (:func:`~repro_torch.store.budget_slot_cap`). Sweeps between
-rebalance points read nothing on the host. Checkpointing and span tracing
-raise ``NotImplementedError`` naming their ROADMAP item when the config
-asks for them.
+rebalance points read nothing on the host.
+
+Observability (:mod:`repro_torch.obs`): every report the solver serves is a
+view over its own :class:`~repro_torch.obs.MetricsRegistry` (``report()``)
+and :class:`~repro_torch.obs.EventLog` (``events``: ``sweep``,
+``stream_sweep``, ``rebalance`` and the streamer's ``h2d_build`` /
+``h2d_wait`` events). With the span tracer enabled (``runtime.trace=True``
+or ``obs.trace.enable()``) a resident sweep runs
+:func:`~repro_torch.core.als.als_traced_sweep` — the EC and the exchange
+of each mode as separate stages, each in its own span and followed by a
+synchronise of every card of the mesh — with fits and factors bitwise
+those of the untraced sweep; ``dump_trace`` writes the spans as Chrome
+trace JSON. Tracing off, each span is one shared no-op object.
 """
 from __future__ import annotations
 
-import time
+import itertools
+import json
 
 import numpy as np
 import torch
 
-from repro_torch import comm
+from repro_torch import comm, obs
 from repro_torch.api.config import DecomposeConfig
 from repro_torch.core import als as als_mod
 from repro_torch.core import mttkrp as dmttkrp
 from repro_torch.core.decompose import CPResult
 from repro_torch.core.partition import CPPlan, validate_plan
 from repro_torch.kernels import _build
+from repro_torch.obs import clock
+from repro_torch.obs import export as obs_export
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.metrics import EventLog, MetricsRegistry
+from repro_torch.obs.profiler import StreamMonitor
 from repro_torch.schedule import rebalance as rebalance_mod
 from repro_torch.sparse.stream import (ShardStreamer, SuperShardStreamer,
                                        WindowSpill)
 from repro_torch.store.plan import budget_slot_cap, split_mode_super_shards
+from repro_torch.training.checkpoint import CheckpointManager
+
+# distinguishes concurrent solvers' sections in the process-wide
+# obs.report() — names are never reused within a process
+_SOLVER_IDS = itertools.count(1)
 
 __all__ = ["CPSolver", "compile", "validate_factor_payload", "resolve_device"]
 
@@ -96,21 +125,6 @@ def validate_factor_payload(factors, lam, *, shape, rank,
                          f"({rank},)")
 
 
-def _reject_unported(config: DecomposeConfig) -> None:
-    """Raise for every config feature the port does not run yet."""
-    unported = [
-        (config.runtime.checkpoint_dir is not None, "runtime.checkpoint_dir",
-         "Plan cache and checkpoint"),
-        (config.runtime.trace, "runtime.trace=True",
-         "Observability and tracing"),
-    ]
-    for asked, what, item in unported:
-        if asked:
-            raise NotImplementedError(
-                f"{what}: not ported to repro_torch yet (ROADMAP, queue 1, "
-                f"{item!r})")
-
-
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card. A CUDA device without a card raises: the
     port never falls back to the CPU unless asked."""
@@ -129,7 +143,6 @@ class CPSolver:
 
     def __init__(self, plan: CPPlan, config: DecomposeConfig,
                  mesh: dmttkrp.CPMesh):
-        _reject_unported(config)
         lazy = any(getattr(p, "lazy", False) for p in plan.modes)
         if config.schedule.telemetry_enabled and lazy:
             raise ValueError(
@@ -148,13 +161,16 @@ class CPSolver:
         # reference's.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        # every report this solver serves is a view over this registry and
+        # event log (see repro_torch.obs)
+        self.metrics = MetricsRegistry()
+        self.events = EventLog()
+        if config.runtime.trace:
+            obs_trace.enable()
         self._kernel_kw = config.kernel.mttkrp_kwargs(
             nmodes=plan.nmodes, rank=config.rank, device=mesh.devices[0])
         self.exchange_spec = comm.resolve_exchange_spec(
             config.exchange, plan=plan, rank=config.rank, mesh=mesh)
-        # per streamed sweep: transfer, exposed and hidden seconds, the
-        # windows placed and the bytes moved to each device
-        self.stream_events: list[dict] = []
         if self.streaming:
             if not all(getattr(p, "lazy", False) for p in plan.modes):
                 raise ValueError(
@@ -178,7 +194,8 @@ class CPSolver:
             if config.runtime.stream_spill:
                 spill = WindowSpill(config.runtime.stream_spill_dir)
             self.streamer = SuperShardStreamer(
-                plan, mesh, self.stream_plans, buffers=buffers, spill=spill)
+                plan, mesh, self.stream_plans, buffers=buffers, spill=spill,
+                events=self.events)
             self.updates = als_mod.make_streaming_sweep_updates(
                 plan, mesh, rank=config.rank,
                 exchange_spec=self.exchange_spec, **self._kernel_kw)
@@ -187,7 +204,8 @@ class CPSolver:
             # All modes stay resident (prefetch=nmodes): the streamer is
             # here for its background (re)placement, not for eviction —
             # out-of-memory epoch streaming is the runtime.streaming path.
-            self.streamer = ShardStreamer(plan, mesh, prefetch=plan.nmodes)
+            self.streamer = ShardStreamer(plan, mesh, prefetch=plan.nmodes,
+                                          events=self.events)
             self.updates = als_mod.make_sweep_updates(
                 plan, mesh, exchange_spec=self.exchange_spec,
                 **self._kernel_kw)
@@ -215,16 +233,43 @@ class CPSolver:
                 kernel_kw=self._kernel_kw,
                 migrate=sched.migrations_enabled,
                 member_nnz_caps=member_caps)
-        # one dict per rebalance point, as the reference's event log holds
-        # them (``launch.decompose`` prints them)
-        self.schedule_events: list[dict] = []
         # per rebalance point: the raw probe seconds per mode and device,
         # the kernel launches the probes made (``_build.LAUNCHES`` deltas),
         # and the host seconds of the probes, the apply and the
         # re-placement's dispatch (kept apart from schedule_events, which
         # stay the reference's values)
         self.rebalance_timings: list[dict] = []
+        self._ckpt_mgr = None
+        if config.runtime.checkpoint_dir is not None:
+            self._ckpt_mgr = CheckpointManager(config.runtime.checkpoint_dir)
+        # traced resident sweeps need the EC and the exchange as separate
+        # stages — built on the first traced sweep (see _traced_updates)
+        self._traced_updates_cache = None
+        self.metrics.register_provider("overlap", self.overlap_report)
+        self.metrics.register_provider("imbalance", self.imbalance_report)
+        self.metrics.register_provider(
+            "exchange", lambda: self.exchange_report(measure=False))
+        self.metrics.register_provider("stream",
+                                       self.streamer.stats_snapshot)
+        self._obs_name = f"solver.{next(_SOLVER_IDS)}"
+        obs.get_registry().register_provider(self._obs_name,
+                                             self.metrics.report)
         self.reset()
+
+    @property
+    def stream_events(self) -> list[dict]:
+        """Per streamed sweep: transfer, exposed and hidden seconds, the
+        windows placed and the bytes moved to each device (what
+        :meth:`overlap_report` aggregates) — a stamp-stripped view over the
+        event log's ``stream_sweep`` events."""
+        return self.events.payloads("stream_sweep")
+
+    @property
+    def schedule_events(self) -> list[dict]:
+        """One dict per rebalance point, as the reference's event log holds
+        them (``launch.decompose`` prints them) — a stamp-stripped view
+        over the event log's ``rebalance`` events."""
+        return self.events.payloads("rebalance")
 
     @property
     def dev_arrays(self) -> list:
@@ -241,9 +286,18 @@ class CPSolver:
     def close(self) -> None:
         """Release the session's background resources: cancels the
         streamer's pending prefetches and joins its thread, so no copy
-        outlives the solver, and removes an owned window spill.
-        Idempotent; the solver is unusable afterwards."""
-        self.streamer.close()
+        outlives the solver, and removes an owned window spill. Also
+        deregisters the solver's section from the process-wide
+        ``obs.report()``, closes any event-log sink and waits for an
+        in-flight checkpoint. Idempotent; the solver is unusable
+        afterwards."""
+        try:
+            self.streamer.close()
+        finally:
+            obs.get_registry().unregister_provider(self._obs_name)
+            self.events.close_sink()
+            if self._ckpt_mgr is not None:
+                self._ckpt_mgr.wait()
 
     def __enter__(self) -> "CPSolver":
         return self
@@ -264,13 +318,49 @@ class CPSolver:
             lam=als_mod.replicate(np.ones(rank, np.float32), devices),
             grams=[[f.T @ f for f in reps] for reps in factors])
 
+    def restore(self, step: int | None = None) -> bool:
+        """Elastic resume: load the latest (or given) verified checkpoint
+        and install its GLOBAL-layout factors through :meth:`load_state`
+        on every replica of THIS plan's layout — the checkpoint may have
+        been written under any device count, or by the reference package.
+        Returns True iff a checkpoint was restored."""
+        if self._ckpt_mgr is None:
+            raise ValueError("no checkpoint_dir configured in "
+                             "config.runtime; nothing to restore from")
+        if step is None:
+            restored = self._ckpt_mgr.restore_latest()
+        else:
+            payload = self._ckpt_mgr.restore(step)
+            restored = None if payload is None else (payload, step)
+        if restored is None:
+            return False
+        payload, step = restored
+        self.load_state(payload["factors"], payload["lam"],
+                        fits=list(payload.get("fits", [])), sweep=step,
+                        source=f"checkpoint step {step} in "
+                               f"{self._ckpt_mgr.dir!r}")
+        return True
+
+    def checkpoint(self) -> None:
+        """Write the current state at its sweep: replica 0's factors in
+        the GLOBAL layout, its ``lam`` and the fits, all moved to the host
+        first (reading them waits for the sweep's device work)."""
+        if self._ckpt_mgr is None:
+            raise ValueError("no checkpoint_dir configured in config.runtime")
+        s = self.state
+        self._ckpt_mgr.save(s.sweep, {
+            "factors": als_mod.unpad_factors(self.plan, s.factors),
+            "lam": s.lam[0].detach().cpu().numpy(),
+            "fits": np.asarray([float(f) for f in s.fits], np.float64),
+        })
+
     def load_state(self, factors, lam, *, fits=(), sweep: int = 0,
                    source: str = "warm-start state") -> None:
         """Install GLOBAL-layout ``(I_w, rank)`` factors and ``lam`` as the
-        solver's current state on every replica — the warm-start entry that
-        carries a run over from the reference package (a ``CPResult``'s
-        ``factors`` and ``lam``, or a checkpoint payload's). Validates
-        geometry first."""
+        solver's current state on every replica — the warm-start entry of
+        :meth:`restore`, and the one that carries a run over from the
+        reference package (a ``CPResult``'s ``factors`` and ``lam``).
+        Validates geometry first."""
         rank = self.config.rank
         validate_factor_payload(factors, lam, shape=self.plan.shape,
                                 rank=rank, source=source)
@@ -287,19 +377,49 @@ class CPSolver:
             sweep=sweep, fits=list(fits))
 
     # -- execution ---------------------------------------------------------
+    def _traced_updates(self) -> list[als_mod.StreamingModeUpdate]:
+        """The EC and the exchange as separate stages for the RESIDENT plan
+        — the traced sweep's updates (the streaming triples, one window
+        per mode). Accumulating the EC into a zero accumulator and then
+        finishing gives the bits of the one-shot update; splitting them is
+        what lets each stage carry its own span. Built on the first traced
+        sweep."""
+        if self._traced_updates_cache is None:
+            self._traced_updates_cache = als_mod.make_streaming_sweep_updates(
+                self.plan, self.mesh, rank=self.config.rank,
+                exchange_spec=self.exchange_spec, **self._kernel_kw)
+        return self._traced_updates_cache
+
     def sweep(self) -> als_mod.ALSState:
         """One full ALS sweep (all modes). The appended fit is a 0-d device
         tensor (reading it blocks the host).
 
         In streaming mode each mode iterates its super-shards through the
         double-buffered streamer instead (fits bitwise identical), and the
-        sweep's transfer and exposed seconds are appended to
-        :attr:`stream_events`."""
-        if not self.streaming:
-            self.state = als_mod.als_sweep(self.plan, self.mesh,
-                                           self.dev_arrays, self.state,
-                                           self.updates)
-            return self.state
+        sweep's transfer and exposed seconds are emitted as a
+        ``stream_sweep`` event (see :attr:`stream_events`).
+
+        With the span tracer enabled a resident sweep runs
+        :func:`~repro_torch.core.als.als_traced_sweep` instead: EC and
+        exchange as separate stages with their own spans, fits still
+        bitwise identical, at the cost of a synchronise after each
+        stage."""
+        tracer = obs_trace.get_tracer()
+        with tracer.span("sweep", sweep=self.state.sweep + 1, annotate=True):
+            if self.streaming:
+                self._streaming_sweep()
+            elif tracer.enabled:
+                self.state = als_mod.als_traced_sweep(
+                    self.plan, self.mesh, self.dev_arrays, self.state,
+                    self._traced_updates())
+            else:
+                self.state = als_mod.als_sweep(self.plan, self.mesh,
+                                               self.dev_arrays, self.state,
+                                               self.updates)
+        self.events.emit("sweep", sweep=self.state.sweep)
+        return self.state
+
+    def _streaming_sweep(self) -> None:
         before = self.streamer.stats_snapshot()
         self.state = als_mod.als_streaming_sweep(
             self.plan, self.mesh, self.streamer, self.stream_plans,
@@ -308,21 +428,17 @@ class CPSolver:
         transfer = after["transfer_s"] - before["transfer_s"]
         exposed = after["exposed_s"] - before["exposed_s"]
         hidden = max(transfer - exposed, 0.0)
-        self.stream_events.append({
-            "sweep": self.state.sweep,
-            "transfer_s": transfer,
-            "exposed_s": exposed,
-            "hidden_s": hidden,
-            "overlap_fraction": hidden / transfer if transfer > 0 else None,
-            "shards_streamed": after["builds"] - before["builds"],
-            "bytes_streamed": after["bytes_streamed"]
+        self.events.emit(
+            "stream_sweep",
+            sweep=self.state.sweep,
+            transfer_s=transfer,
+            exposed_s=exposed,
+            hidden_s=hidden,
+            overlap_fraction=hidden / transfer if transfer > 0 else None,
+            shards_streamed=after["builds"] - before["builds"],
+            bytes_streamed=after["bytes_streamed"]
             - before["bytes_streamed"],
-        })
-        return self.state
-
-    def _synchronize(self) -> None:
-        for card in {d for d in self.mesh.devices if d.type == "cuda"}:
-            torch.cuda.synchronize(card)
+        )
 
     def rebalance_step(self):
         """One rebalance point: wait for the enqueued sweeps, probe every
@@ -341,13 +457,13 @@ class CPSolver:
         for them."""
         if self.rebalancer is None:
             return None
-        self._synchronize()
+        als_mod.synchronize(self.mesh)
         launched = dict(_build.LAUNCHES)
-        t0 = time.perf_counter()
+        t0 = clock.now()
         decision = self.rebalancer.observe(self.plan, self.state.factors,
                                            sweep=self.state.sweep,
                                            dev_arrays=self.dev_arrays)
-        t1 = time.perf_counter()
+        t1 = clock.now()
         event = dict(self.rebalancer.events[-1])
         timing = {"sweep": self.state.sweep,
                   "probe_s": {m: t.tolist() for m, t in
@@ -361,7 +477,7 @@ class CPSolver:
             plan, applied = rebalance_mod.apply_rebalance(self.plan,
                                                           decision)
             self.plan = validate_plan(plan)
-            t2 = time.perf_counter()
+            t2 = clock.now()
             # Re-place only modes where something actually moved: a skipped
             # migration leaves bit-identical arrays. replace_s is the host
             # time of the dispatch; the copies run on the streamer's thread
@@ -376,11 +492,11 @@ class CPSolver:
             else:
                 self.streamer.plan = self.plan  # epoch bump only
             timing.update(apply_s=t2 - t1,
-                          replace_s=time.perf_counter() - t2,
+                          replace_s=clock.now() - t2,
                           moved_modes=moved)
             event["applied"] = applied
             event["epoch_after"] = self.plan.rebalance_epoch
-        self.schedule_events.append(event)
+        self.events.emit("rebalance", **event)
         self.rebalance_timings.append(timing)
         return decision
 
@@ -388,27 +504,34 @@ class CPSolver:
             verbose: bool = False) -> CPResult:
         """Sweep until ``iters`` total sweeps or the fit plateaus below
         ``tol`` (default: config.runtime.tol). Resumes from the current
-        state's sweep counter. Hits a rebalance point every
-        ``config.schedule.cadence`` sweeps when the scheduler is enabled,
-        except after the last sweep. The plateau test reads each fit on
-        the host between sweeps; with ``tol=0`` nothing is read until the
-        result (or a rebalance point)."""
+        state's sweep counter, so ``restore(); run(iters)`` continues where
+        the checkpoint left off. Checkpoints after every sweep when a
+        checkpoint_dir is configured (which reads the factors on the
+        host); hits a rebalance point every ``config.schedule.cadence``
+        sweeps when the scheduler is enabled, except after the last sweep.
+        The plateau test reads each fit on the host between sweeps; with
+        ``tol=0`` and neither of those, nothing is read until the result."""
         if tol is None:
             tol = self.config.runtime.tol
         cadence = self.config.schedule.cadence
-        for _ in range(self.state.sweep, iters):
-            state = self.sweep()
-            if verbose:
-                print(f"sweep {state.sweep}: "
-                      f"fit={float(state.fits[-1]):.6f}")
-            if self.rebalancer is not None \
-                    and state.sweep % cadence == 0 \
-                    and state.sweep < iters:
-                self.rebalance_step()
-            if tol > 0 and len(state.fits) >= 2 and \
-                    abs(float(state.fits[-1])
-                        - float(state.fits[-2])) < tol:
-                break
+        with obs_trace.span("run", iters=iters, annotate=True):
+            for _ in range(self.state.sweep, iters):
+                state = self.sweep()
+                if verbose:
+                    print(f"sweep {state.sweep}: "
+                          f"fit={float(state.fits[-1]):.6f}")
+                if self._ckpt_mgr is not None:
+                    with obs_trace.span("checkpoint", sweep=state.sweep):
+                        self.checkpoint()
+                if self.rebalancer is not None \
+                        and state.sweep % cadence == 0 \
+                        and state.sweep < iters:
+                    with obs_trace.span("rebalance", sweep=state.sweep):
+                        self.rebalance_step()
+                if tol > 0 and len(state.fits) >= 2 and \
+                        abs(float(state.fits[-1])
+                            - float(state.fits[-2])) < tol:
+                    break
         return self.result()
 
     def imbalance_report(self) -> dict:
@@ -524,6 +647,34 @@ class CPSolver:
             "per_sweep": list(self.stream_events),
         }
 
+    def report(self) -> dict:
+        """This solver's metrics report: counters/gauges/latency histograms
+        plus the ``overlap``/``imbalance``/``exchange``/``stream``
+        sections — each a registered provider over the report method of
+        that name, value-identical to calling it directly (``exchange``
+        with ``measure=False``: a snapshot must not run the MTTKRP)."""
+        return self.metrics.report()
+
+    def stream_monitor(self) -> StreamMonitor:
+        """Per-window exposed-vs-hidden transfer attribution built from
+        the streamer's ``h2d_build``/``h2d_wait`` events."""
+        return StreamMonitor(self.events)
+
+    def dump_trace(self, path: str) -> dict:
+        """Export every span the process tracer recorded as Chrome-trace
+        JSON (load in ``chrome://tracing`` or https://ui.perfetto.dev);
+        returns the trace dict. Spans nest run → sweep → mode_update →
+        {ec, exchange, h2d_window} (+ plan/compile/checkpoint/rebalance)."""
+        return obs_export.dump_chrome_trace(
+            path, obs_trace.get_tracer().records())
+
+    def dump_events(self, path: str) -> None:
+        """One-shot dump of the solver's structured event log as JSON
+        lines (the live twin is ``events.set_sink``)."""
+        with open(path, "w") as f:
+            for e in self.events.events():
+                f.write(json.dumps(e, default=str) + "\n")
+
     def result(self) -> CPResult:
         """Snapshot the current state as a host-side :class:`CPResult`
         from replica 0 (forces a sync: factors unpadded to global layout,
@@ -548,18 +699,22 @@ def compile(plan: CPPlan, config: DecomposeConfig, *,
     ``"cpu"`` puts every logical device on the CPU, and a one-device plan
     may name its card (``"cuda:1"``). To share a card among several
     logical devices, pass ``mesh=cp_mesh(M, r, devices=["cuda:0"] * M)``."""
-    validate_plan(plan)  # fail loudly before any device placement
-    m, r = plan.num_devices, plan.modes[0].r
-    if mesh is None:
-        dev = resolve_device(device)
-        if dev.type == "cpu" or (m == 1 and dev.index is not None):
-            mesh = dmttkrp.cp_mesh(m, r, devices=[dev] * m)
-        elif dev.index is not None:
-            raise ValueError(
-                f"device={str(dev)!r} names one card for a {m}-device plan;"
-                f" pass mesh=cp_mesh({m}, {r}, devices=[...]) instead")
-        else:
-            mesh = dmttkrp.cp_mesh(m, r)
-    elif device is not None:
-        raise ValueError("pass a mesh or a device, not both")
-    return CPSolver(plan, config, mesh)
+    if config.runtime.trace:
+        obs_trace.enable()  # before the span below so it is recorded
+    with obs_trace.span("compile", annotate=True):
+        validate_plan(plan)  # fail loudly before any device placement
+        m, r = plan.num_devices, plan.modes[0].r
+        if mesh is None:
+            dev = resolve_device(device)
+            if dev.type == "cpu" or (m == 1 and dev.index is not None):
+                mesh = dmttkrp.cp_mesh(m, r, devices=[dev] * m)
+            elif dev.index is not None:
+                raise ValueError(
+                    f"device={str(dev)!r} names one card for a {m}-device "
+                    f"plan; pass mesh=cp_mesh({m}, {r}, devices=[...]) "
+                    f"instead")
+            else:
+                mesh = dmttkrp.cp_mesh(m, r)
+        elif device is not None:
+            raise ValueError("pass a mesh or a device, not both")
+        return CPSolver(plan, config, mesh)

@@ -35,7 +35,10 @@ Epoch streaming (:func:`als_streaming_sweep`) runs the same sweep over an
 out-of-core plan's super-shards: per mode, each window's partial EC is
 folded into a zero accumulator, then merge, exchange and solve run once.
 Its fits and factors are bitwise those of :func:`als_sweep` on the
-resident shards of the same plan.
+resident shards of the same plan. :func:`als_traced_sweep` runs the
+resident plan through the same split (one window per mode), so that the EC
+and the exchange of each mode carry spans of their own
+(:mod:`repro_torch.obs.trace`), with the same bits.
 """
 from __future__ import annotations
 
@@ -48,12 +51,13 @@ import torch
 
 from repro_torch.core import mttkrp as dmttkrp
 from repro_torch.core.partition import CPPlan
+from repro_torch.obs import trace as obs_trace
 
 __all__ = ["ALSState", "init_factors", "replicate", "make_mode_update",
            "make_sweep_updates", "als_sweep", "fit_from_stats",
            "unpad_factors", "StreamingModeUpdate",
            "make_streaming_mode_update", "make_streaming_sweep_updates",
-           "als_streaming_sweep"]
+           "als_streaming_sweep", "als_traced_sweep", "synchronize"]
 
 
 @dataclasses.dataclass
@@ -222,6 +226,13 @@ def _barrier(tensors) -> None:
         s.synchronize()
 
 
+def synchronize(mesh) -> None:
+    """Wait for every card of ``mesh`` (nothing to wait for on the
+    CPU)."""
+    for card in {d for d in mesh.devices if d.type == "cuda"}:
+        torch.cuda.synchronize(card)
+
+
 def als_streaming_sweep(plan: CPPlan, mesh, streamer, stream_plans,
                         state: ALSState,
                         updates: Sequence[StreamingModeUpdate]) -> ALSState:
@@ -239,19 +250,68 @@ def als_streaming_sweep(plan: CPPlan, mesh, streamer, stream_plans,
     honest (the time ``get`` blocks is transfer NOT hidden behind compute,
     not host queue-ahead racing the device)."""
     n = plan.nmodes
+    tracer = obs_trace.get_tracer()
+    factors, grams = list(state.factors), list(state.grams)
+    m_last = f_last = lam = None
+    for d in range(n):
+        with tracer.span("mode_update", mode=d, annotate=True):
+            upd = updates[d]
+            acc = upd.init_acc()
+            for k in range(stream_plans[d].num_shards):
+                with tracer.span("h2d_window", mode=d, shard=k):
+                    dev = streamer.get(d, k)
+                with tracer.span("ec", mode=d, shard=k, annotate=True):
+                    acc = upd.accumulate(acc, dev, factors)
+                    _barrier(acc)
+            others = [factors[w] for w in range(n) if w != d]
+            with tracer.span("exchange", mode=d, annotate=True):
+                f_d, g_d, m_d, lam = upd.finish(factors[d], acc, others,
+                                                grams)
+                if tracer.enabled:
+                    # only when traced: close the span at the end of the
+                    # merge, exchange and solve, not at their launch
+                    synchronize(mesh)
+            factors[d], grams[d] = f_d, g_d
+            m_last, f_last = m_d, f_d
+    return _finish_sweep(plan, state, factors, grams, m_last, f_last, lam)
+
+
+def als_traced_sweep(plan: CPPlan, mesh, dev_arrays: Sequence,
+                     state: ALSState,
+                     updates: Sequence[StreamingModeUpdate]) -> ALSState:
+    """Traced twin of :func:`als_sweep` for resident shards: each mode runs
+    through a :class:`StreamingModeUpdate` triple built for the *resident*
+    plan, so the EC (``accumulate`` into a zero accumulator — the bits of
+    the one-shot update's partial) and the merge, exchange and solve
+    (``finish``) are separate stages, each in its own span
+    (``mode_update`` ⊃ {``ec``, ``exchange``}) and each followed by a
+    synchronise of every card of the mesh, so that a span ends when its
+    device work does. Fits and factors are bitwise those of
+    :func:`als_sweep`; the synchronises are the cost of stage-attributed
+    timing (the untraced sweep waits for nothing)."""
+    n = plan.nmodes
+    tracer = obs_trace.get_tracer()
     factors, grams = list(state.factors), list(state.grams)
     m_last = f_last = lam = None
     for d in range(n):
         upd = updates[d]
-        acc = upd.init_acc()
-        for k in range(stream_plans[d].num_shards):
-            dev = streamer.get(d, k)
-            acc = upd.accumulate(acc, dev, factors)
-            _barrier(acc)
-        others = [factors[w] for w in range(n) if w != d]
-        f_d, g_d, m_d, lam = upd.finish(factors[d], acc, others, grams)
+        with tracer.span("mode_update", mode=d, annotate=True):
+            with tracer.span("ec", mode=d, annotate=True):
+                acc = upd.accumulate(upd.init_acc(), dev_arrays[d], factors)
+                synchronize(mesh)
+            others = [factors[w] for w in range(n) if w != d]
+            with tracer.span("exchange", mode=d, annotate=True):
+                f_d, g_d, m_d, lam = upd.finish(factors[d], acc, others,
+                                                grams)
+                synchronize(mesh)
         factors[d], grams[d] = f_d, g_d
         m_last, f_last = m_d, f_d
+    return _finish_sweep(plan, state, factors, grams, m_last, f_last, lam)
+
+
+def _finish_sweep(plan: CPPlan, state: ALSState, factors, grams, m_last,
+                  f_last, lam) -> ALSState:
+    """The sweep's new state: every replica's fit, replica 0's appended."""
     fits = [fit_from_stats(plan.norm, m_last[k], f_last[k], lam[k],
                            [g[k] for g in grams])
             for k in range(len(lam))]
@@ -291,12 +351,7 @@ def als_sweep(plan: CPPlan, mesh, dev_arrays: Sequence, state: ALSState,
                                         grams)
         factors[d], grams[d] = f_d, g_d
         m_last, f_last = m_d, f_d
-    fits = [fit_from_stats(plan.norm, m_last[k], f_last[k], lam[k],
-                           [g[k] for g in grams])
-            for k in range(len(lam))]
-    return ALSState(factors=factors, lam=lam, grams=grams,
-                    sweep=state.sweep + 1, fits=state.fits + [fits[0]],
-                    replica_fits=fits)
+    return _finish_sweep(plan, state, factors, grams, m_last, f_last, lam)
 
 
 def unpad_factors(plan: CPPlan, factors: Sequence[Sequence[torch.Tensor]]

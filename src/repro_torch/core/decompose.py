@@ -1,19 +1,33 @@
-"""The host-side result of a CP decomposition.
+"""Legacy entry point: CP decomposition of a sparse tensor in one call.
 
-A copy of :class:`CPResult` from the reference package's
-``core/decompose.py`` (with its coordinate check); the deprecated one-call
-``cp_decompose`` shim is not ported — the staged API in
-:mod:`repro_torch.api` replaces it.
+The counterpart of the reference package's ``core/decompose.py``.
+
+.. deprecated::
+    ``cp_decompose`` is a thin shim over the staged public API in
+    :mod:`repro_torch.api` — prefer::
+
+        import repro_torch.api as api
+        cfg    = api.DecomposeConfig(rank=32)
+        solver = api.compile(api.plan(tensor, cfg), cfg)
+        result = solver.run(iters=10)
+
+    which separates preprocessing (reusable, cacheable, serializable) from
+    execution instead of repartitioning the tensor on every invocation.
+
+:class:`CPResult` (with its coordinate check) remains the canonical
+host-side result container for both paths.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 
-from repro_torch.core.partition import CPPlan
+from repro_torch.core.coo import SparseTensor
+from repro_torch.core.partition import CPPlan, Strategy
 
-__all__ = ["CPResult", "validate_coords"]
+__all__ = ["CPResult", "cp_decompose", "validate_coords"]
 
 
 def validate_coords(indices: np.ndarray, shape: tuple[int, ...], *,
@@ -58,3 +72,64 @@ class CPResult:
         for w, f in enumerate(self.factors):
             acc *= np.asarray(f, np.float64)[indices[:, w]]
         return acc @ np.asarray(self.lam, np.float64)
+
+
+def cp_decompose(
+    tensor: SparseTensor,
+    rank: int = 32,
+    *,
+    num_devices: int | None = None,
+    mesh=None,
+    device=None,
+    strategy: Strategy = "amped_cdf",
+    replication: int | None = None,
+    iters: int = 10,
+    tol: float = 1e-5,
+    seed: int = 0,
+    use_kernel: bool = False,
+    kernel_variant: str | None = None,
+    num_buffers: int | None = None,
+    autotune: bool = False,
+    ring: bool = True,
+    checkpoint_dir: str | None = None,
+    resume: bool = False,
+    verbose: bool = False,
+) -> CPResult:
+    """Deprecated one-shot CP-ALS (see module docstring for the replacement).
+
+    Maps its kwargs onto a :class:`repro_torch.api.DecomposeConfig` and runs
+    the plan/compile/execute pipeline — plan, compile, ``restore`` when
+    ``resume`` and a ``checkpoint_dir`` are given, run; results are those
+    of the staged API with the same seed, bit for bit. It runs on the card
+    unless ``device="cpu"``, or on ``mesh`` (a
+    :class:`~repro_torch.core.mttkrp.CPMesh`) when one is passed; without
+    ``num_devices`` it is the mesh's device count, else that of
+    :func:`repro_torch.api.planning.resolve_num_devices`.
+    """
+    warnings.warn(
+        "cp_decompose() is deprecated; use repro_torch.api "
+        "(plan/compile/execute) instead", DeprecationWarning, stacklevel=2)
+    from repro_torch import api
+    from repro_torch.api.planning import resolve_num_devices
+
+    if mesh is not None and device is not None:
+        raise ValueError("pass a mesh or a device, not both")
+    if num_devices is None:
+        num_devices = mesh.num_devices if mesh is not None else \
+            resolve_num_devices(api.DecomposeConfig(), device=device)
+
+    cfg = api.DecomposeConfig.from_legacy_kwargs(
+        rank=rank, num_devices=num_devices, strategy=strategy,
+        replication=replication, tol=tol, seed=seed, use_kernel=use_kernel,
+        kernel_variant=kernel_variant, num_buffers=num_buffers,
+        autotune=autotune, ring=ring, checkpoint_dir=checkpoint_dir)
+
+    plan = api.plan(tensor, cfg, device=device if mesh is None
+                    else mesh.devices[0])
+    solver = api.compile(plan, cfg, mesh=mesh, device=device)
+    try:
+        if resume and checkpoint_dir is not None:
+            solver.restore()
+        return solver.run(iters, verbose=verbose)
+    finally:
+        solver.close()

@@ -161,9 +161,13 @@ class DeviceArrays:
     seg_starts: torch.Tensor     # (nblocks, tile + 2) int32
     seg_rows: torch.Tensor       # (nblocks, tile + 1) int32
 
+    def tensors(self) -> tuple[torch.Tensor, ...]:
+        """The seven tensors themselves, in field order (not
+        ``dataclasses.astuple``, which deep-copies each one)."""
+        return tuple(getattr(self, n) for n in _ARRAY_NAMES)
+
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size()
-                   for t in dataclasses.astuple(self))
+        return sum(t.numel() * t.element_size() for t in self.tensors())
 
 
 _ARRAY_NAMES = ("indices", "values", "local_rows", "block_to_tile",
@@ -190,7 +194,7 @@ class Placed:
                 continue
             stream = torch.cuda.current_stream(dev.values.device)
             stream.wait_event(ev)
-            for t in dataclasses.astuple(dev):
+            for t in dev.tensors():
                 t.record_stream(stream)
         return self.arrays
 

@@ -173,10 +173,16 @@ class ModePartition:
     ``local_rows`` pointing at a row the device already owns, so they are
     exact no-ops).
 
-    ``META_FIELDS`` are the scalar fields a lazy
-    :class:`~repro_torch.store.StoreModePartition` shares with this class.
+    ``ARRAY_FIELDS`` / ``META_FIELDS`` are the serialization contract of
+    :mod:`repro_torch.api.planning` (``save_plan``/``load_plan``, the
+    reference's format): arrays round-trip bit-exactly through npz, meta
+    through the JSON manifest. ``META_FIELDS`` are also the scalar fields a
+    lazy :class:`~repro_torch.store.StoreModePartition` shares with this
+    class.
     """
 
+    ARRAY_FIELDS = ("indices", "values", "local_rows", "block_to_tile",
+                    "tile_visited", "nnz_true", "rows_owned", "blocks_true")
     META_FIELDS = ("mode", "num_devices", "r", "n_groups", "rows_max",
                    "tile", "block_p", "block_layout")
     # The out-of-core counterpart (repro_torch.store.StoreModePartition)

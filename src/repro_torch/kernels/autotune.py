@@ -37,7 +37,8 @@ overridden by ``AMPED_TORCH_AUTOTUNE_CACHE`` (empty string: no file; an
 in-process memo always applies). The reference rewrites the file it reads
 and drops keys it cannot parse, so the two packages never share one.
 :mod:`repro_torch.comm.autotune` keeps its ``xchg_...`` winners in the
-same file. :data:`COUNTERS` counts memo hits, cache hits and misses.
+same file. :data:`COUNTERS` counts memo hits, cache hits and misses, as
+do the ``autotune.ec.*`` counters of :func:`repro_torch.obs.get_registry`.
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import ops as kops
 
 __all__ = ["ECConfig", "autotune_ec", "cache_path", "representative_shard",
@@ -301,16 +303,19 @@ def autotune_ec(
         memo = _MEMO.get(key)
         if memo is not None and memo[0] == grid:
             COUNTERS["memo_hits"] += 1
+            obs.get_registry().inc("autotune.ec.memo_hits")
             return memo[1]
         disk = _load_cache(cache_path()).get(key)
         if disk is not None and disk.get("grid") == grid:
             COUNTERS["cache_hits"] += 1
+            obs.get_registry().inc("autotune.ec.cache_hits")
             cfg = ECConfig(int(disk["tile"]), int(disk["block_p"]),
                            int(disk["num_buffers"]),
                            dict(disk.get("timings", {})))
             _MEMO[key] = (grid, cfg)
             return cfg
     COUNTERS["misses"] += 1
+    obs.get_registry().inc("autotune.ec.misses")
 
     timings: dict[str, float] = {}
     best, best_t = None, float("inf")

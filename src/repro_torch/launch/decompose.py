@@ -13,6 +13,9 @@
         --profile --scale 2e-5
     PYTHONPATH=src python -m repro_torch.launch.decompose --store /tmp/a.store \
         --stream --memory-budget-mb 0.5 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.decompose --scale 2e-5 \
+        --device cpu --plan-cache /tmp/plans --ckpt /tmp/ckpt \
+        --trace-out /tmp/trace.json --events-out /tmp/events.jsonl
 
 Runs the staged repro_torch.api pipeline — on ``cuda:0 .. cuda:N-1`` (one
 logical device per card; fewer visible cards than ``--devices`` raises)
@@ -28,12 +31,17 @@ the bytes that each logical device counted. ``--rebalance``
 (``schedule.rebalance=on``) and ``--measure-balance`` (``=measure``) turn
 the dynamic load balancer on and print its calibrated cost model, the
 measured and modelled max/mean imbalance per mode and each rebalance point,
-as the reference launcher does.
+as the reference launcher does. ``--plan-cache`` reuses preprocessing across
+runs (a second run prints ``plan Xs (cache hit)``), ``--ckpt`` checkpoints
+every sweep and resumes from the latest checkpoint unless ``--no-resume``;
+``--trace-out`` turns the span tracer on for the whole invocation and
+writes a Chrome-trace JSON (``python -m repro_torch.obs TRACE.json``
+validates it), and ``--events-out`` mirrors every structured event as JSON
+lines, live.
 """
 from __future__ import annotations
 
 import argparse
-import time
 
 
 def main(argv=None):
@@ -66,6 +74,13 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where the solve runs (cpu: the kernels' plain "
                          "PyTorch versions)")
+    ap.add_argument("--plan-cache", default=None,
+                    help="plan cache directory (reuse preprocessing across "
+                         "runs with a matching content signature)")
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint directory (a checkpoint every sweep)")
+    ap.add_argument("--no-resume", action="store_true",
+                    help="with --ckpt: start fresh instead of resuming")
     ap.add_argument("--rebalance", action="store_true",
                     help="enable the dynamic load balancer "
                          "(schedule.rebalance=on; tune via --set "
@@ -86,7 +101,20 @@ def main(argv=None):
                     metavar="MB",
                     help="per-device memory budget for --stream, in MiB "
                          "(covers all stream buffers of one mode shard)")
+    ap.add_argument("--trace-out", default=None, metavar="PATH",
+                    help="enable span tracing and write a Chrome-trace "
+                         "JSON (chrome://tracing / ui.perfetto.dev) "
+                         "covering plan/compile/execute")
+    ap.add_argument("--events-out", default=None, metavar="PATH",
+                    help="mirror structured events (sweeps, rebalance "
+                         "points, H2D windows) as JSON lines, flushed "
+                         "live")
     args = ap.parse_args(argv)
+
+    from repro_torch.obs import clock
+    from repro_torch.obs import trace as obs_trace
+    if args.trace_out:
+        obs_trace.enable()
 
     import repro_torch.api as api
     from repro_torch.sparse.io import make_profile_tensor, read_tns
@@ -94,6 +122,8 @@ def main(argv=None):
     cfg = api.preset(args.preset, {"rank": args.rank})
     if args.devices:
         cfg = cfg.with_overrides({"runtime.num_devices": args.devices})
+    if args.ckpt:
+        cfg = cfg.with_overrides({"runtime.checkpoint_dir": args.ckpt})
     if args.rebalance:
         cfg = cfg.with_overrides({"schedule.rebalance": "on"})
     elif args.measure_balance:
@@ -122,21 +152,26 @@ def main(argv=None):
           f"policy={cfg.resolved_policy()} "
           f"rebalance={cfg.schedule.rebalance} device={args.device}")
 
-    t0 = time.perf_counter()
-    plan = api.plan(t, cfg, device=args.device)
-    t_plan = time.perf_counter() - t0
+    t0 = clock.now()
+    plan = api.plan(t, cfg, cache_dir=args.plan_cache, device=args.device)
+    t_plan = clock.now() - t0
     part = plan.modes[0]
     print(f"geometry: tile={part.tile} block_p={part.block_p} "
           f"layout={part.block_layout} devices={plan.num_devices} "
           f"r={part.r}")
     solver = api.compile(plan, cfg, device=args.device)
-    t_compile = time.perf_counter() - t0 - t_plan
-    t1 = time.perf_counter()
+    t_compile = clock.now() - t0 - t_plan
+    if args.events_out:
+        solver.events.set_sink(args.events_out)
+    if args.ckpt and not args.no_resume:
+        solver.restore()
+    t1 = clock.now()
     res = solver.run(args.iters, verbose=True)
-    t_exec = time.perf_counter() - t1
+    t_exec = clock.now() - t1
 
-    print(f"plan {t_plan:.1f}s | compile {t_compile:.1f}s | "
-          f"execute {t_exec:.1f}s")
+    hit = args.plan_cache is not None and api.CACHE_STATS["hits"] > 0
+    print(f"plan {t_plan:.1f}s{' (cache hit)' if hit else ''} | "
+          f"compile {t_compile:.1f}s | execute {t_exec:.1f}s")
     print(f"{res.sweeps} sweeps; final fit {res.fits[-1]:.5f}")
 
     report = solver.imbalance_report()
@@ -185,6 +220,14 @@ def main(argv=None):
         if ov["spill_saves"] or ov["spill_hits"]:
             print(f"  window spill: {ov['spill_saves']} saved, "
                   f"{ov['spill_hits']} replayed")
+    if args.trace_out:
+        solver.dump_trace(args.trace_out)
+        summary = obs_trace.get_tracer().summary()
+        stages = " ".join(f"{k}={v['count']}"
+                          for k, v in sorted(summary.items()))
+        print(f"trace: {args.trace_out} [{stages}]")
+    if args.events_out:
+        print(f"events: {args.events_out} ({len(solver.events)} lines)")
     solver.close()
 
 

@@ -40,13 +40,14 @@ single-member groups and are never migrated.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.kernels import ops as kops
+from repro_torch.obs import clock
+from repro_torch.obs import trace as obs_trace
 from repro_torch.schedule import cost as cost_mod
 
 __all__ = ["GroupMigration", "ReplanDecision", "Rebalancer",
@@ -137,9 +138,9 @@ def _best_seconds(run, device: torch.device, repeats: int) -> float:
         return best
     run()
     for _ in range(max(1, repeats)):
-        t0 = time.perf_counter()
+        t0 = clock.now()
         run()
-        best = min(best, time.perf_counter() - t0)
+        best = min(best, clock.now() - t0)
     return best
 
 
@@ -157,7 +158,8 @@ def measure_mode_device_times(part, factors: Sequence[Sequence[torch.Tensor]],
     ``kernel_kw`` (best of ``repeats`` after one warm-up). Devices are
     timed one after another. Each device's probe ends in a synchronise, so
     callers invoke it only at rebalance points. Nothing of ``factors`` or
-    ``arrays`` is written.
+    ``arrays`` is written. Each device's probe is one
+    ``rebalance_probe`` span.
     """
     kernel_kw = dict(kernel_kw or {"use_kernel": False, "variant": "ref",
                                    "num_buffers": 2})
@@ -171,7 +173,9 @@ def measure_mode_device_times(part, factors: Sequence[Sequence[torch.Tensor]],
                 factors=facs, mode=part.mode, num_rows=part.rows_max,
                 tile=part.tile, block_p=part.block_p, **a, **kernel_kw)
 
-        times[dev] = _best_seconds(run, facs[0].device, repeats)
+        with obs_trace.span("rebalance_probe", mode=part.mode, device=dev,
+                            annotate=True):
+            times[dev] = _best_seconds(run, facs[0].device, repeats)
     return times
 
 

@@ -1,11 +1,13 @@
-"""Sparse tensor input and the paper's dataset profiles.
+"""Sparse tensor I/O and the paper's dataset profiles.
 
-The port's copy of the reading half of the reference package's
-``sparse/io.py``: ``read_tns`` parses the FROSTT ``.tns`` text format
-(1-based coordinates, value last, transparently gunzipped when the path ends
-in ``.gz``), and ``make_profile_tensor`` produces synthetic tensors whose
-shape *ratios* and skew match the paper's four billion-scale datasets
-(Table 3), scaled down. Tests hold both bitwise against the reference.
+The port's copy of the reference package's ``sparse/io.py``:
+``read_tns``/``write_tns`` handle the FROSTT ``.tns`` text format (1-based
+coordinates, value last, transparently compressed when the path ends in
+``.gz``), ``make_profile_tensor`` produces synthetic tensors whose shape
+*ratios* and skew match the paper's four billion-scale datasets (Table 3),
+scaled down, and ``make_lowrank_tensor`` a sparse tensor that is an exact
+CP model. Tests hold each bitwise against the reference (``write_tns``
+byte for byte).
 """
 from __future__ import annotations
 
@@ -18,12 +20,17 @@ import numpy as np
 
 from repro_torch.core.coo import SparseTensor, random_sparse
 
-__all__ = ["read_tns", "iter_tns_batches", "DATASET_PROFILES",
-           "DatasetProfile", "profile_geometry", "make_profile_tensor"]
+__all__ = ["read_tns", "write_tns", "iter_tns_batches", "DATASET_PROFILES",
+           "DatasetProfile", "profile_geometry", "make_profile_tensor",
+           "make_lowrank_tensor"]
 
 # Lines parsed per batch. Each batch becomes two ndarray chunks immediately,
 # so peak Python-object overhead is O(chunk_lines), not O(nnz).
 READ_TNS_CHUNK_LINES = 1 << 20
+
+# Nonzeros per np.savetxt call in write_tns: bounds the formatted-text
+# working set without paying a Python-level loop per line.
+WRITE_TNS_CHUNK = 1 << 18
 
 
 def _open_text(path: str, mode: str = "rt"):
@@ -84,6 +91,20 @@ def read_tns(path: str, *, chunk_lines: int = READ_TNS_CHUNK_LINES
     return SparseTensor(ind.astype(np.int32), val, shape)
 
 
+def write_tns(path: str, t: SparseTensor, *,
+              chunk: int = WRITE_TNS_CHUNK) -> None:
+    """Write ``t`` in ``.tns`` text (1-based, value last), gzip-compressed
+    when ``path`` ends in ``.gz``. ``np.savetxt`` formats ``chunk`` nonzeros
+    per call; ``%.9g`` round-trips every float32 value exactly."""
+    fmt = " ".join(["%d"] * t.nmodes) + " %.9g"
+    with _open_text(path, "wt") as f:
+        for s in range(0, t.nnz, chunk):
+            block = np.column_stack([
+                t.indices[s:s + chunk].astype(np.float64) + 1,
+                t.values[s:s + chunk].astype(np.float64)])
+            np.savetxt(f, block, fmt=fmt)
+
+
 @dataclasses.dataclass(frozen=True)
 class DatasetProfile:
     """Shape and nnz of a paper dataset (Table 3) plus its skew character."""
@@ -122,3 +143,45 @@ def make_profile_tensor(name: str, *, scale: float = 1e-3, seed: int = 0) -> Spa
     shape, nnz = profile_geometry(name, scale)
     return random_sparse(
         shape, nnz, seed=seed, distribution=p.distribution, zipf_a=p.zipf_a)
+
+
+def make_lowrank_tensor(shape, rank: int, nnz: int, *,
+                        seed: int = 0) -> SparseTensor:
+    """A sparse tensor that IS an exact CP model of the given rank.
+
+    Each mode is split into ``rank`` contiguous segments; component ``r``
+    is a (weighted) indicator of a random row subset of segment ``r`` in
+    every mode, so the model is ``rank`` disjoint aligned blocks. The
+    nonzeros enumerate every cell of every block (~``nnz`` total, subset
+    sizes chosen per block), and nonzero order is shuffled. CP-ALS at the
+    same rank converges to fit ≈ 1 from any reasonable start.
+    """
+    shape = tuple(int(s) for s in shape)
+    nmodes = len(shape)
+    if any(s < rank for s in shape):
+        raise ValueError(f"every mode of {shape} must have >= rank={rank} "
+                         f"rows (one segment per component)")
+    rng = np.random.default_rng(seed)
+    bounds = [np.linspace(0, s, rank + 1).astype(np.int64) for s in shape]
+    # distinct per-component weights so components are distinguishable
+    weights = np.linspace(0.5, 1.5, rank)
+    cells_per = max(nnz // rank, 1)
+    inds, vals = [], []
+    for r in range(rank):
+        seg_len = [int(bounds[d][r + 1] - bounds[d][r])
+                   for d in range(nmodes)]
+        m = [min(L, max(1, int(round(cells_per ** (1.0 / nmodes)))))
+             for L in seg_len]
+        # adjust the largest mode so the block lands near cells_per
+        rest = int(np.prod(m[:-1]))
+        m[-1] = min(seg_len[-1], max(1, int(round(cells_per / rest))))
+        rows = [np.sort(rng.choice(seg_len[d], size=m[d], replace=False)
+                        + bounds[d][r]) for d in range(nmodes)]
+        grid = np.meshgrid(*rows, indexing="ij")
+        block = np.stack([g.ravel() for g in grid], axis=1)
+        inds.append(block)
+        vals.append(np.full(block.shape[0], weights[r], np.float32))
+    ind = np.concatenate(inds)
+    val = np.concatenate(vals)
+    order = rng.permutation(ind.shape[0])
+    return SparseTensor(ind[order].astype(np.int32), val[order], shape)

@@ -35,7 +35,11 @@ LRU residents are evicted first, then superseded pending prefetches are
 cancelled (or, when already executing, settled and discarded). The time
 ``get`` blocks on a transfer is recorded as EXPOSED transfer time, the
 complement of the overlap double buffering buys
-(:meth:`_StreamerBase.stats_snapshot`).
+(:meth:`_StreamerBase.stats_snapshot`). Given a
+:class:`~repro_torch.obs.EventLog`, a streamer also emits one
+``h2d_build`` event per placement (on the thread that built it) and one
+``h2d_wait`` event per blocking ``get`` — the input of
+:class:`~repro_torch.obs.StreamMonitor`.
 
 A streamer owns a background thread and must be shut down: :meth:`close`
 cancels queued prefetches, joins the running one (so no background copy
@@ -49,7 +53,6 @@ import os
 import shutil
 import tempfile
 import threading
-import time
 from collections import OrderedDict
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Hashable, Iterable
@@ -60,6 +63,7 @@ import torch
 from repro_torch.core.mttkrp import (CPMesh, DeviceArrays, Placed,
                                      place_mode, shard_super_shard)
 from repro_torch.core.partition import CPPlan
+from repro_torch.obs import clock
 
 __all__ = ["ShardStreamer", "SuperShardStreamer", "WindowSpill",
            "assert_holds", "LockNotHeldError", "ENV_ASSERT"]
@@ -175,9 +179,12 @@ class _StreamerBase:
     one key, a :class:`~repro_torch.core.mttkrp.Placed`) and
     :meth:`_key_nbytes` (per-device bytes a key holds)."""
 
-    def __init__(self, mesh: CPMesh, *, prefetch: int):
+    def __init__(self, mesh: CPMesh, *, prefetch: int, events=None):
         self.prefetch = prefetch
         self.mesh = mesh
+        # optional repro_torch.obs.EventLog: per-window h2d_build/h2d_wait
+        # events (the StreamMonitor's input); None = no structured emission
+        self._events = events
         # one side copy stream per card of the mesh
         self._streams = {d.index: torch.cuda.Stream(device=d)
                          for d in mesh.devices if d.type == "cuda"}
@@ -204,22 +211,30 @@ class _StreamerBase:
     def _key_nbytes(self, key) -> int:
         return 0
 
+    def _key_fields(self, key) -> dict:
+        """Event-log fields naming one key (mode/shard)."""
+        return {"mode": key, "shard": None}
+
     # -- residency engine --------------------------------------------------
     def _timed_build(self, key) -> Placed:
         """One key's placement, on the prefetch thread or (cold) on the
         caller's. Its seconds end when the copies are issued and, on a card,
         have run on the side stream: the transfer time this measures is
         what a consumer would otherwise wait for."""
-        t0 = time.perf_counter()
+        t0 = clock.now()
         placed = self._build(key)
         for ev in placed.ready:
             if ev is not None:
                 ev.synchronize()
-        dt = time.perf_counter() - t0
+        dt = clock.now() - t0
         with self._stats_lock:
             self.stats["transfer_s"] += dt
             self.stats["builds"] += 1
             self.stats["bytes_streamed"] += self._key_nbytes(key)
+        if self._events is not None:
+            self._events.emit("h2d_build", build_s=dt,
+                              bytes=self._key_nbytes(key),
+                              **self._key_fields(key))
         return placed
 
     def _track_add(self, key) -> None:  # holds: _stats_lock
@@ -248,7 +263,8 @@ class _StreamerBase:
         or loading synchronously on a cold miss). Block time is recorded as
         exposed transfer time — the part double buffering failed to hide."""
         fut = self._pending.pop(key, None)
-        t0 = time.perf_counter()
+        t0 = clock.now()
+        cold = False
         if fut is not None:
             try:
                 self._resident[key] = fut.result()
@@ -257,6 +273,7 @@ class _StreamerBase:
                     self._track_drop(key)
                 raise
         elif key not in self._resident:
+            cold = True
             with self._stats_lock:
                 self._track_add(key)
                 self.stats["cold_builds"] += 1
@@ -269,9 +286,12 @@ class _StreamerBase:
         else:
             t0 = None
         if t0 is not None:
-            waited = time.perf_counter() - t0
+            waited = clock.now() - t0
             with self._stats_lock:
                 self.stats["exposed_s"] += waited
+            if self._events is not None:
+                self._events.emit("h2d_wait", wait_s=waited, cold=cold,
+                                  **self._key_fields(key))
         self._resident.move_to_end(key)
         return self._resident[key]
 
@@ -384,8 +404,9 @@ class _StreamerBase:
 class ShardStreamer(_StreamerBase):
     """Whole-shard-per-mode streamer (keys are mode ids)."""
 
-    def __init__(self, plan: CPPlan, mesh: CPMesh, *, prefetch: int = 1):
-        super().__init__(mesh, prefetch=prefetch)
+    def __init__(self, plan: CPPlan, mesh: CPMesh, *, prefetch: int = 1,
+                 events=None):
+        super().__init__(mesh, prefetch=prefetch, events=events)
         self.plan = plan
 
     def _build(self, mode: int) -> Placed:
@@ -438,10 +459,11 @@ class SuperShardStreamer(_StreamerBase):
     sweep boundary to (0, 0)."""
 
     def __init__(self, plan: CPPlan, mesh: CPMesh, stream_plans, *,
-                 buffers: int = 2, spill: WindowSpill | None = None):
+                 buffers: int = 2, spill: WindowSpill | None = None,
+                 events=None):
         if buffers < 1:
             raise ValueError("buffers must be >= 1")
-        super().__init__(mesh, prefetch=buffers - 1)
+        super().__init__(mesh, prefetch=buffers - 1, events=events)
         self.plan = plan
         self.stream_plans = list(stream_plans)
         self.spill = spill
@@ -469,6 +491,9 @@ class SuperShardStreamer(_StreamerBase):
 
     def _key_nbytes(self, key) -> int:
         return self.stream_plans[key[0]].shard_bytes
+
+    def _key_fields(self, key) -> dict:
+        return {"mode": key[0], "shard": key[1]}
 
     def _next_key(self, key):
         mode, k = key

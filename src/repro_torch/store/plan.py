@@ -39,6 +39,7 @@ import numpy as np
 from repro_torch.core import partition as partition_mod
 from repro_torch.core.partition import (CPPlan, ModeLayout, ModePartition,
                                         Strategy)
+from repro_torch.obs import trace as obs_trace
 from repro_torch.schedule.static import auto_replication
 from repro_torch.store.store import TensorStore
 
@@ -598,21 +599,19 @@ def split_mode_super_shards(part: StoreModePartition, budget_bytes: int, *,
             f"~{min_budget} B for {buffers}-buffered streaming, or re-plan "
             f"with a smaller tile")
     windows: list[list[tuple[int, int]]] = []
-    # The reference wraps this loop in its tracer's "super_shard_split"
-    # span; the port's span tracer is a later slice (ROADMAP, queue 1,
-    # "Observability and tracing").
-    for dev in range(m):
-        tc_pad = part._dev_tc_pad[dev]
-        wins: list[tuple[int, int]] = []
-        t0, acc = 0, 0
-        for t in range(n_tiles):
-            c = int(tc_pad[t])
-            if acc + c > slot_cap and acc > 0:
-                wins.append((t0, t))
-                t0, acc = t, 0
-            acc += c
-        wins.append((t0, n_tiles))
-        windows.append(wins)
+    with obs_trace.span("super_shard_split", mode=part.mode):
+        for dev in range(m):
+            tc_pad = part._dev_tc_pad[dev]
+            wins: list[tuple[int, int]] = []
+            t0, acc = 0, 0
+            for t in range(n_tiles):
+                c = int(tc_pad[t])
+                if acc + c > slot_cap and acc > 0:
+                    wins.append((t0, t))
+                    t0, acc = t, 0
+                acc += c
+            wins.append((t0, n_tiles))
+            windows.append(wins)
     num_shards = max(len(w) for w in windows)
     for wins in windows:
         wins.extend([(0, 0)] * (num_shards - len(wins)))

@@ -253,19 +253,48 @@ def test_plan_rejects_unported(small_tensor, overrides, item, monkeypatch):
     ({"runtime.checkpoint_dir": "x"}, "checkpoint"),
     ({"runtime.trace": True}, "tracing"),
 ])
-def test_compile_rejects_unported(small_tensor, overrides, item):
-    """Checkpointing and tracing still raise. The rebalancer under a memory
-    budget is ported: its member caps are the reference's. Streaming an
-    in-memory plan is refused by both packages alike (it needs a tensor
-    store plan)."""
+def test_compile_rejects_unported(small_tensor, overrides, item, tmp_path):
+    """Nothing the config asks for is refused any more. Checkpointing is
+    ported: a run writes the reference's checkpoint directories, one per
+    sweep. Tracing is ported: compiling turns on the process tracer and
+    records a ``compile`` span, as in the reference. The rebalancer under a
+    memory budget is ported: its member caps are the reference's.
+    Streaming an in-memory plan is refused by both packages alike (it
+    needs a tensor store plan)."""
+    from repro import obs as jobs
+    from repro_torch import obs as tobs
+    if item == "checkpoint":
+        overrides = {"runtime.checkpoint_dir": str(tmp_path / "port")}
     plan = tapi.plan(_port_tensor(small_tensor), tapi.preset("paper"))
     cfg = tapi.preset("paper", overrides)
-    if item in ("checkpoint", "tracing"):
-        with pytest.raises(NotImplementedError, match=item):
-            tapi.compile(plan, cfg, device="cpu")
-        return
     jcfg = japi.preset("paper", overrides)
     jplan = japi.plan(small_tensor, jcfg)
+    if item == "checkpoint":
+        jdir = str(tmp_path / "ref")
+        jcfg = japi.preset("paper", {"runtime.checkpoint_dir": jdir})
+        with tapi.compile(plan, cfg, device="cpu") as solver:
+            solver.run(2)
+        japi.compile(jplan, jcfg).run(2)
+        steps = ["step_0000000001", "step_0000000002"]
+        assert sorted(os.listdir(tmp_path / "port")) == steps
+        assert sorted(os.listdir(jdir)) == steps
+        return
+    if item == "tracing":
+        tobs.reset()
+        jobs.reset()
+        try:
+            tapi.compile(plan, cfg, device="cpu").close()
+            japi.compile(jplan, jcfg).close()
+            assert tobs.trace.get_tracer().enabled
+            assert jobs.trace.get_tracer().enabled
+            assert tobs.export.span_counts(
+                tobs.trace.get_tracer().records()) == \
+                jobs.export.span_counts(jobs.trace.get_tracer().records()) \
+                == {"compile": 1}
+        finally:
+            tobs.reset()
+            jobs.reset()
+        return
     if item == "Streaming":
         for compile_, p, c in ((japi.compile, jplan, jcfg),
                                (lambda p, c: tapi.compile(p, c,
@@ -300,10 +329,19 @@ def test_launcher_on_cpu(capsys):
     assert "plan " in out and "| compile " in out and "| execute " in out
 
 
-def test_launcher_has_no_unported_flags(tmp_path):
-    for argv in (["--plan-cache", "x"], ["--ckpt", "x"]):
-        with pytest.raises(SystemExit):
-            launcher.main(argv)
+def test_launcher_has_no_unported_flags(tmp_path, capsys):
+    # --plan-cache and --ckpt are ported: a second run hits the cache and
+    # resumes from the first run's last checkpoint (no sweep left to run)
+    argv = ["--profile", "twitch", "--scale", "2e-5", "--iters", "2",
+            "--device", "cpu", "--plan-cache", str(tmp_path / "plans"),
+            "--ckpt", str(tmp_path / "ckpt")]
+    launcher.main(argv)
+    first = capsys.readouterr().out
+    assert "sweep 2: fit=" in first and "(cache hit)" not in first
+    launcher.main(argv)
+    second = capsys.readouterr().out
+    assert "(cache hit)" in second and "sweep 1: fit=" not in second
+    assert second.splitlines()[-1] == first.splitlines()[-1]  # final fit
     # --store is ported: the flag parses, and a directory that is no store
     # is refused by the store itself
     from repro_torch.store import StoreFormatError

@@ -604,3 +604,100 @@ def test_window_pads_splitting_a_run_on_card(cuda, tmp_path, variant):
         placed = dm.shard_super_shard(part, sp, k, mesh, streams=streams)
         acc = pfn(acc, placed.wait(), f)
     assert torch.equal(acc[0], want)
+
+
+# -- the tracer, checkpoints and the BLCO-style baseline on the card ---------
+
+@pytest.mark.parametrize("preset", ["sorted", "paper"])
+def test_traced_sweep_is_bitwise_the_untraced_one_on_card(cuda, preset):
+    """The traced split (EC into a zero accumulator, then the finish, each
+    followed by a synchronise) gives the untraced sweep's bits on the card,
+    on a tile whose run is longer than CHUNK_BLOCKS blocks."""
+    from repro_torch import obs
+    from repro_torch.core.coo import SparseTensor
+    rng = np.random.default_rng(4)
+    ind = np.stack([rng.integers(0, s, 730) for s in (20, 12, 10)], axis=1)
+    ind[:640, 1] = 2
+    t = SparseTensor(ind.astype(np.int32),
+                     rng.normal(size=730).astype(np.float32), (20, 12, 10))
+    over = {"rank": 8, "kernel.autotune": False, "runtime.tol": 0.0,
+            "runtime.num_devices": 1, "partition.tile": 8,
+            "partition.block_p": 16}
+    cfg = api.preset(preset, over)
+    plan = api.plan(t, cfg)
+    with api.compile(plan, cfg) as solver:
+        plain = solver.run(3)
+    obs.reset()
+    try:
+        tcfg = cfg.with_overrides({"runtime.trace": True})
+        with api.compile(plan, tcfg) as solver:
+            traced = solver.run(3)
+        counts = obs.export.span_counts(obs.trace.get_tracer().records())
+    finally:
+        obs.reset()
+    assert traced.fits == plain.fits
+    for a, b in zip(traced.factors, plain.factors):
+        np.testing.assert_array_equal(a, b)
+    assert counts["ec"] == counts["exchange"] == 9 and counts["sweep"] == 3
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """Checkpoints of a solver on the card hold its host bits; a fresh
+    solver restored at sweep 2 runs to 4 within 1e-6 (fits) and 1e-5
+    (factors) of the uninterrupted run."""
+    t = random_sparse((40, 30, 20), 600, seed=7, distribution="zipf")
+    cfg = api.preset("sorted", {
+        "rank": 8, "kernel.autotune": False, "runtime.tol": 0.0,
+        "runtime.num_devices": 1,
+        "runtime.checkpoint_dir": str(tmp_path)})
+    plan = api.plan(t, cfg)
+    with api.compile(plan, cfg) as solver:
+        full = solver.run(4)
+        saved = solver._ckpt_mgr.restore(4)
+    for a, b in zip(saved["factors"], full.factors):
+        np.testing.assert_array_equal(a, b)
+    with api.compile(plan, cfg) as solver:
+        assert solver.restore(2)
+        assert solver.state.factors[0][0].device.type == "cuda"
+        resumed = solver.run(4)
+    np.testing.assert_allclose(resumed.fits, full.fits, atol=1e-6)
+    for a, b in zip(resumed.factors, full.factors):
+        np.testing.assert_allclose(a, b, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_blco_baseline_on_card_matches_cpu(cuda, mode):
+    """The baseline on the card against its CPU run within 1e-5 (the
+    card's deterministic index_add_ adds in slot order; the gathers and
+    products are the same f32 operations), with CUDA-event EC times."""
+    from repro_torch.core.baselines import blco_like_streaming
+    t = random_sparse((400, 300, 200), 20000, seed=3, distribution="zipf")
+    rng = np.random.default_rng(0)
+    factors = [torch.from_numpy(rng.normal(size=(s, 16)).astype(np.float32))
+               for s in t.shape]
+    got, times = blco_like_streaming(t, factors, mode, chunk=4096)
+    want, cpu_times = blco_like_streaming(t, factors, mode, chunk=4096,
+                                          device="cpu")
+    assert got.device.type == "cuda"
+    assert times["chunks"] == cpu_times["chunks"] == -(-t.nnz // 4096) > 1
+    assert times["ec_s"] > 0 and times["h2d_s"] > 0
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+def test_placed_wait_marks_the_shards_and_copies_nothing(cuda):
+    """``Placed.wait`` on shards copied on a side stream: no device memory
+    is allocated (it deep-copied every tensor before), and the current
+    stream waits for the copy."""
+    t = random_sparse((400, 300, 200), 20000, seed=3, distribution="zipf")
+    plan = build_plan(t, 1)
+    mesh = dm.cp_mesh(1, 1, devices=[cuda])
+    placed = dm.place_mode(plan.modes[0], mesh,
+                           streams={cuda.index or 0:
+                                    torch.cuda.Stream(device=cuda)})
+    assert placed.ready[0] is not None
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    arrays = placed.wait()
+    assert torch.cuda.max_memory_allocated(cuda) == before
+    assert arrays[0].values.data_ptr() == placed.arrays[0].values.data_ptr()

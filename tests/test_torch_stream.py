@@ -66,6 +66,26 @@ def _gate(s, modes, release, started=None):
     s._build = gated
 
 
+def test_placed_shards_are_walked_not_copied(plan4, mesh, monkeypatch):
+    """``DeviceArrays.tensors()`` (what ``nbytes`` and ``Placed.wait``
+    walk) hands out the placed tensors themselves. ``dataclasses.astuple``
+    deep-copied each one: a device copy of every shard per sweep, and
+    ``record_stream`` marked the copies instead of the shards."""
+    import copy
+    dev = dm.shard_plan_mode(plan4.modes[0], mesh)[0]
+    fields = (dev.indices, dev.values, dev.local_rows, dev.block_to_tile,
+              dev.tile_visited, dev.seg_starts, dev.seg_rows)
+    assert all(a is b for a, b in zip(dev.tensors(), fields, strict=True))
+
+    def no_copy(*a, **k):
+        raise AssertionError("a placed tensor was deep-copied")
+
+    monkeypatch.setattr(copy, "deepcopy", no_copy)
+    assert dev.nbytes() == sum(t.numel() * t.element_size() for t in fields)
+    placed = dm.Placed([dev], [None])
+    assert placed.wait()[0] is dev
+
+
 @pytest.mark.parametrize("prefetch", [0, 1, 2])
 def test_residency_never_exceeds_prefetch_plus_one(plan4, mesh, prefetch):
     with _streamer(plan4, mesh, prefetch=prefetch) as s:
