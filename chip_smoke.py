@@ -155,15 +155,46 @@ Phases, each of which exits non-zero on failure:
    busy share. Then the traced against the untraced steady sweep. Counts
    are set to 0 just before each run and read just after: ``ec_sorted``
    once per mode, device and sweep.
-12. Summary: one JSON line ``{"kernels": [...]}`` (``ms``, ``plain_ms`` and
+12. Serve + analysis, at the main path's size (R 32, ``sorted``, tile 8,
+   block_p 128, one card). (a) ``CPService.boot`` from phase 11(b)'s
+   checkpoint directory over a copy of phase 3's store, with the main
+   path's config. (b) 8 client threads x 200 ``reconstruct`` requests of
+   16 coordinates through the batcher, then requests of 1, 7, 9, 100 and
+   257, each within rtol 1e-4 / atol 1e-5 of the float64 numpy model
+   (tests/test_serve.py's tolerance); then 20 ``topk`` slices of mode 0
+   with k = 10: scores within 1e-4 of numpy's dense scores, indices equal
+   at every position whose dense score is more than 1e-5 relative from its
+   neighbours' (``torch.topk`` orders ties otherwise than ``lax.top_k``).
+   (c) 1 % of the store's nonzeros appended at a seeded sample of the
+   stored coordinates, with fresh seeded values; ``refresh(sweeps=3,
+   wait=False)`` while 4 client threads query (one also ``topk``) until it
+   ends and once more: every answer bitwise v1's or v2's, each client with
+   a v1 answer and a last answer (begun after the publish) of v2's bits,
+   v2 published, and the refit
+   launched ``ec_sorted`` 3 x 3 times and nothing else (counts set to 0
+   just before the refresh, read just after); the refresh's seconds split
+   into plan, compile (placement), sweeps, freeze-blend, ``store_fit`` and
+   ``sample_fit``. (d) A checkpoint of random factors: ``deploy_checkpoint``
+   rolls back on the held-out sample fit, the engine stays at v2. (e)
+   ``check_plan`` (deep) on the main plan and ``api.plan(store, cfg,
+   analyze="strict")``: no AP error; AH-H001 clean for ``sorted`` and
+   ``fused`` and finding ``blocked``'s pre-gather; ``CPSolver.audit()`` of
+   the main path's solver leaves its state bitwise unchanged, and every
+   AH-H002 finding is printed with its source line (``_pinv_psd``'s eigh is
+   expected); AH-H005 clean on phase 6's r = 2 plan on 4 logical devices
+   with the ``overlap`` exchange on a bf16 wire; AH-H006 clean after (b);
+   the concurrency lint clean. Prints p50/p99 per operation, rows/s,
+   ``topk`` ms and the bucket counts.
+13. Summary: one JSON line ``{"kernels": [...]}`` (``ms``, ``plain_ms`` and
    ``bound_ms`` summed over the three modes, i.e. one sweep's launches;
    ``launches`` from the main-path run, ``multi_device_launches`` from the
    multi-device path's, ``rebalance_launches`` from the rebalance phase's
    ``"measure"`` and ``"on"`` runs, of which ``rebalance_probe_launches``
    were counted around the probes; ``tuner_launches`` the EC autotuner's
    candidate runs, ``preset_launches`` the tuned presets' runs,
-   ``stream_launches`` the streamed windows' and ``operations_launches``
-   phase 11's runs), the card's name and power
+   ``stream_launches`` the streamed windows', ``operations_launches``
+   phase 11's runs and ``serve_launches`` phase 12's refit), the card's
+   name and power
    limit, and last ``{"ok": true, "device": {...}}``. With ``--out PATH``
    every per-mode number also goes to a JSON file.
 """
@@ -1994,6 +2025,385 @@ def operations_phase(api, tensor, plan, cfg, store, kept, fits, recs,
     return out
 
 
+# -- phase 12: serve + analysis ----------------------------------------------
+
+SERVE_CLIENTS = 8           # client threads of the query load
+SERVE_REQUESTS = 200        # reconstruct requests per client
+SERVE_BATCH = 16            # coordinates per request
+SERVE_EDGES = (1, 7, 9, 100, 257)  # bucket-boundary request sizes
+SERVE_TOPK = 20             # top-k slices on mode 0
+SERVE_K = 10
+SERVE_APPEND = 0.01         # appended share of the store's nonzeros
+SERVE_SWEEPS = 3            # sweeps of the refit
+SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-5  # tests/test_serve.py's tolerance
+TOPK_TIE_RTOL = 1e-5        # dense scores this close may swap places
+
+
+def model_at(factors, lam, ind) -> np.ndarray:
+    """The float64 numpy model at ``(k, nmodes)`` coordinates."""
+    acc = np.ones((ind.shape[0], lam.shape[0]), np.float64)
+    for w, f in enumerate(factors):
+        acc *= np.asarray(f, np.float64)[ind[:, w]]
+    return acc @ np.asarray(lam, np.float64)
+
+
+def coords_of(rng, shape, n) -> np.ndarray:
+    return np.stack([rng.integers(0, s, size=n) for s in shape], axis=1)
+
+
+def query_load(svc, factors, lam) -> dict:
+    """(b) SERVE_CLIENTS threads x SERVE_REQUESTS batched reconstructs,
+    the bucket-boundary sizes, then SERVE_TOPK top-k slices on mode 0,
+    each held against the float64 numpy model."""
+    import threading
+    shape = svc.engine.snapshot.shape
+    results, errors = [], []
+
+    def client(c):
+        rng = np.random.default_rng(100 + c)
+        try:
+            for _ in range(SERVE_REQUESTS):
+                ind = coords_of(rng, shape, SERVE_BATCH)
+                results.append((ind, svc.reconstruct(ind, deadline_s=30.0)))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        fail(f"a query failed under load: {errors[0]!r}")
+    rng = np.random.default_rng(7)
+    for n in SERVE_EDGES:
+        ind = coords_of(rng, shape, n)
+        results.append((ind, svc.reconstruct(ind, deadline_s=30.0)))
+    worst = 0.0  # the largest |diff| as a share of its allowance
+    for ind, got in results:
+        want = model_at(factors, lam, ind)
+        share = np.abs(got - want) / (SERVE_ATOL + SERVE_RTOL * np.abs(want))
+        worst = max(worst, float(share.max()))
+    if worst > 1.0:
+        fail(f"reconstruct off the float64 model beyond rtol {SERVE_RTOL} "
+             f"/ atol {SERVE_ATOL} ({worst:.2f} of the allowance)")
+    rows = SERVE_CLIENTS * SERVE_REQUESTS * SERVE_BATCH
+    topk_ms, score_err, checked = [], 0.0, 0
+    f0 = np.asarray(factors[0], np.float64)
+    for _ in range(SERVE_TOPK):
+        fixed = coords_of(rng, shape, 1)[0]
+        t0 = time.perf_counter()
+        scores, idx = svc.topk(fixed, mode=0, k=SERVE_K)
+        topk_ms.append((time.perf_counter() - t0) * 1e3)
+        w = np.asarray(lam, np.float64).copy()
+        for u in range(1, len(shape)):
+            w *= np.asarray(factors[u], np.float64)[fixed[u]]
+        dense = f0 @ w
+        order = np.argsort(-dense, kind="stable")[:SERVE_K + 1]
+        top = dense[order]
+        score_err = max(score_err, float(np.abs(scores - top[:SERVE_K])
+                                         .max()))
+        if not np.allclose(scores, top[:SERVE_K], rtol=0, atol=1e-4):
+            fail(f"top-k scores off numpy's dense scores by "
+                 f"{np.abs(scores - top[:SERVE_K]).max():.3e} (limit 1e-4)")
+        gap = np.abs(np.diff(top)) > TOPK_TIE_RTOL * np.abs(top[:-1])
+        for j in range(SERVE_K):  # a position clear of both neighbours
+            if gap[j] and (j == 0 or gap[j - 1]):
+                checked += 1
+                if idx[j] != order[j]:
+                    fail(f"top-k position {j}: index {idx[j]}, numpy's "
+                         f"dense order has {order[j]}")
+    print(f"serve (b): {SERVE_CLIENTS} clients x {SERVE_REQUESTS} "
+          f"reconstructs of {SERVE_BATCH} in {wall:.3f} s "
+          f"({rows / wall:.0f} rows/s), within rtol {SERVE_RTOL} / atol "
+          f"{SERVE_ATOL} of the float64 model (worst {worst:.3f} of the "
+          f"limit); sizes {list(SERVE_EDGES)} too; {SERVE_TOPK} top-{SERVE_K}"
+          f" slices of mode 0 ({shape[0]} rows): median "
+          f"{np.median(topk_ms):.3f} ms, scores within {score_err:.2e} of "
+          f"numpy's, {checked} positions clear of ties equal", flush=True)
+    return {"rows": rows, "wall_s": wall, "rows_per_s": rows / wall,
+            "topk_ms": topk_ms, "topk_score_err": score_err,
+            "worst_of_limit": worst}
+
+
+def refresh_during_queries(svc, tensor, store_path) -> dict:
+    """(c) Append SERVE_APPEND of the store's nonzeros at a seeded sample
+    of the stored coordinates with fresh seeded values (standard normal,
+    as the profile generator draws them), refresh in the
+    background and query until it ends: every answer bitwise v1's or
+    v2's, v2 published, ``ec_sorted`` launched SERVE_SWEEPS x nmodes times
+    by the refit."""
+    import threading
+    from repro_torch.kernels import _build
+    from repro_torch.store import append_to_store
+    shape = svc.engine.snapshot.shape
+    rng = np.random.default_rng(11)
+    n_app = int(round(SERVE_APPEND * svc.store.nnz))
+    pos = rng.choice(tensor.nnz, size=n_app, replace=False)
+    ind = tensor.indices[np.sort(pos)].astype(np.int64)
+    # the profile generator's value distribution (core/coo.py)
+    val = rng.standard_normal(n_app).astype(np.float32)
+    t0 = time.perf_counter()
+    append_to_store(store_path, ind, val)
+    append_s = time.perf_counter() - t0
+    batches = [coords_of(np.random.default_rng(200 + c), shape, 64)
+               for c in range(4)]
+    fixed = coords_of(rng, shape, 1)[0]
+    v1 = [svc.reconstruct(b) for b in batches]
+    top1 = svc.topk(fixed, mode=0, k=SERVE_K)
+    answers, errors = [[] for _ in batches], []
+    tops = []
+    sync_all()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    event = svc.refresh(sweeps=SERVE_SWEEPS, wait=False)
+    if not event.get("background"):
+        fail(f"the refresh did not start in the background: {event}")
+
+    def client(c):
+        # refresh() raised the gauge before it returned; the last query
+        # starts after the gauge fell, so after v2 was published
+        try:
+            while True:
+                running = svc.metrics.gauge("refit_in_progress", 0) == 1
+                answers[c].append(svc.reconstruct(batches[c],
+                                                  deadline_s=30.0))
+                if c == 0:
+                    tops.append(svc.topk(fixed, mode=0, k=SERVE_K))
+                if not running:
+                    break
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(len(batches))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    done = svc.wait_refresh()
+    wall = time.perf_counter() - t0
+    sync_all()
+    launches = dict(_build.LAUNCHES)
+    if errors:
+        fail(f"a query failed during the refit: {errors[0]!r}")
+    if not done or not done.get("published") or svc.engine.version != 2:
+        fail(f"the refit did not publish v2: {done}")
+    want = SERVE_SWEEPS * len(shape)
+    if launches["ec_sorted"] != want or \
+            launches["ec_fused"] or launches["ec_blocked"]:
+        fail(f"the refit launched {launches}, expected ec_sorted {want} "
+             f"times and nothing else")
+    v2 = [svc.reconstruct(b) for b in batches]
+    top2 = svc.topk(fixed, mode=0, k=SERVE_K)
+    n_v1 = n_v2 = 0
+    for c, got in enumerate(answers):
+        c_v1 = 0
+        for a in got:
+            if np.array_equal(a, v1[c]):
+                c_v1 += 1
+            elif not np.array_equal(a, v2[c]):
+                fail(f"client {c}: an answer during the refit is neither "
+                     f"v1's nor v2's bits")
+        # v1 answers were served while the refit ran; the last query
+        # started after the publish
+        if c_v1 == 0 or not np.array_equal(got[-1], v2[c]):
+            fail(f"client {c}: {c_v1} v1 answers of {len(got)}, last "
+                 f"{'v2' if np.array_equal(got[-1], v2[c]) else 'v1'}: "
+                 f"the queries did not span the refit")
+        n_v1 += c_v1
+        n_v2 += len(got) - c_v1
+    for sc, ix in tops:
+        if not (np.array_equal(sc, top1[0]) and np.array_equal(ix, top1[1])
+                or np.array_equal(sc, top2[0])
+                and np.array_equal(ix, top2[1])):
+            fail("a top-k answer during the refit is neither v1's nor "
+                 "v2's bits")
+    if not (np.array_equal(tops[-1][0], top2[0])
+            and np.array_equal(tops[-1][1], top2[1])):
+        fail("the last top-k answer, begun after the publish, is not v2's")
+    if all(np.array_equal(a, b) for a, b in zip(v1, v2)):
+        fail("v2 answers as v1 does: the bitwise check means nothing")
+    refit = done["refit"]
+    sec = dict(refit["seconds"], sample_fit=done["sample_fit_s"])
+    print(f"serve (c): appended {n_app} nonzeros in {append_s:.2f} s; "
+          f"background refresh of {SERVE_SWEEPS} sweeps in {wall:.2f} s "
+          f"(plan {sec['plan']:.2f} | compile {sec['compile']:.2f} | "
+          f"sweeps {sec['sweeps']:.3f} | freeze-blend "
+          f"{sec['freeze_blend']:.2f} | store_fit {sec['store_fit']:.2f} | "
+          f"sample_fit {sec['sample_fit']:.2f} s); sweep fits "
+          f"{[round(f, 6) for f in refit['sweep_fits']]}, store fit "
+          f"{refit['fit']:.6f}, sample fit {done['sample_fit_current']:.6f}"
+          f" -> {done['sample_fit_candidate']:.6f}; v2 published; "
+          f"{n_v1} answers v1's and {n_v2} v2's bits ({len(tops)} top-k "
+          f"too); the refit launched ec_sorted {launches['ec_sorted']} "
+          f"times", flush=True)
+    return {"appended": n_app, "append_s": append_s, "wall_s": wall,
+            "seconds": sec, "sweep_fits": refit["sweep_fits"],
+            "fit": refit["fit"], "answers_v1": n_v1, "answers_v2": n_v2,
+            "topk_during": len(tops), "launches": launches,
+            "affected_rows": refit["affected_rows"]}
+
+
+def rollback_case(svc, ck: str, shape, rank: int) -> dict:
+    """(d) A checkpoint of random factors must roll back on the held-out
+    sample fit; the engine stays at v2."""
+    from repro_torch.training import CheckpointManager
+    rng = np.random.default_rng(6)
+    CheckpointManager(ck).save(99, {
+        "factors": [rng.standard_normal((s, rank)).astype(np.float32)
+                    for s in shape],
+        "lam": np.ones(rank, np.float32), "fits": np.array([0.0])})
+    t0 = time.perf_counter()
+    event = svc.deploy_checkpoint()
+    wall = time.perf_counter() - t0
+    if not event["rolled_back"] or event["published"] or \
+            svc.engine.version != 2 or \
+            svc.metrics.counter("rollbacks_total") != 1:
+        fail(f"the random checkpoint was not rolled back: {event}")
+    print(f"serve (d): a checkpoint of random factors rolled back in "
+          f"{wall:.2f} s (sample fit {event['sample_fit_current']:.6f} vs "
+          f"{event['sample_fit_candidate']:.6f}); the engine stays at v2",
+          flush=True)
+    return {"wall_s": wall, "sample_fit_s": event["sample_fit_s"],
+            "sample_fit_current": event["sample_fit_current"],
+            "sample_fit_candidate": event["sample_fit_candidate"]}
+
+
+def analysis_case(api, plan, cfg, store, kept, svc, cards: int) -> dict:
+    """(e) The plan rules on the main plan and at plan time, the audit of
+    the main path's solver and of a bf16-wire run on 4 logical devices,
+    the serving bucket bound and the concurrency lint."""
+    import torch
+    from repro_torch.analysis import (audit_ec_kernel, audit_serving_engine,
+                                      check_plan, errors, hlo_audit,
+                                      lint_default_targets)
+    from repro_torch.core import mttkrp
+    out = {}
+    t0 = time.perf_counter()
+    bad = errors(check_plan(plan, cfg, deep=True))
+    out["check_plan_s"] = time.perf_counter() - t0
+    if bad:
+        fail(f"check_plan on the main plan: {bad}")
+    t0 = time.perf_counter()
+    api.plan(store, cfg, analyze="strict")  # raises on an AP error
+    out["plan_strict_s"] = time.perf_counter() - t0
+    part = plan.modes[0]
+    for variant in ("sorted", "fused"):
+        found = audit_ec_kernel(variant, nmodes=plan.nmodes, rank=cfg.rank,
+                                tile=part.tile, block_p=part.block_p)
+        if found:
+            fail(f"AH-H001 on {variant}: {found}")
+    recs, slots = hlo_audit.ec_recorded_ops(
+        "blocked", nmodes=plan.nmodes, rank=cfg.rank, tile=part.tile,
+        block_p=part.block_p)
+    pre = audit_ec_kernel("sorted", nmodes=plan.nmodes, rank=cfg.rank,
+                          recorded_ops=recs, slots=slots)
+    if [f.rule for f in pre] != ["AH-H001"]:
+        fail(f"AH-H001 did not see blocked's pre-gather: {pre}")
+    with api.compile(plan, cfg) as solver:
+        solver.run(1)
+        before = [[f.clone() for f in reps] for reps in solver.state.factors]
+        lam = [x.clone() for x in solver.state.lam]
+        grams = [[g.clone() for g in reps] for reps in solver.state.grams]
+        t0 = time.perf_counter()
+        found = solver.audit()
+        out["audit_s"] = time.perf_counter() - t0
+        same = all(torch.equal(a, b) for x, y in
+                   zip(solver.state.factors + solver.state.grams,
+                       before + grams) for a, b in zip(x, y)) and \
+            all(torch.equal(a, b) for a, b in zip(solver.state.lam, lam))
+    if not same:
+        fail("the audit changed the solver's state")
+    h002 = [f for f in found if f.rule == "AH-H002"]
+    other = [f for f in found if f.rule != "AH-H002"]
+    if other:
+        fail(f"the audit of the main path's solver: {other}")
+    for f in h002:
+        print(f"  audit: {f}")
+    if not any("_pinv_psd" in f.message for f in h002):
+        print("  audit: no AH-H002 finding names _pinv_psd (eigh's sync "
+              "was expected)")
+    kcfg, kplan = kept
+    r = kplan.modes[0].r
+    mesh = mttkrp.cp_mesh(MD_DEVICES, r, devices=[
+        f"cuda:{k % cards}" for k in range(MD_DEVICES)])
+    bcfg = kcfg.with_overrides({"exchange.variant": "overlap",
+                                "exchange.wire_dtype": "bfloat16"})
+    with api.compile(kplan, bcfg, mesh=mesh) as solver:
+        t0 = time.perf_counter()
+        mfound = solver.audit(modes=[0])
+        out["audit_bf16_s"] = time.perf_counter() - t0
+    if [f for f in mfound if f.rule == "AH-H005"]:
+        fail(f"AH-H005 on the bf16-wire run: {mfound}")
+    buckets = audit_serving_engine(svc.engine)
+    if buckets:
+        fail(f"AH-H006: {buckets}")
+    lint = lint_default_targets()
+    if lint:
+        fail(f"the concurrency lint: {lint}")
+    print(f"serve (e): check_plan (deep) on the main plan in "
+          f"{out['check_plan_s']:.2f} s and api.plan(store, "
+          f"analyze='strict') in {out['plan_strict_s']:.2f} s: no AP error;"
+          f" AH-H001 clean for sorted and fused, blocked's pre-gather "
+          f"found; the solver's audit in {out['audit_s']:.2f} s, state "
+          f"unchanged, {len(h002)} AH-H002 finding(s) above; AH-H005 clean"
+          f" on the r={r} x{MD_DEVICES} bf16-wire run (audit "
+          f"{out['audit_bf16_s']:.2f} s, mode 0; "
+          f"{len([f for f in mfound if f.rule == 'AH-H002'])} AH-H002); "
+          f"AH-H006 clean; concurrency lint clean", flush=True)
+    out["h002"] = [str(f) for f in h002]
+    out["h002_bf16"] = [str(f) for f in mfound if f.rule == "AH-H002"]
+    return out
+
+
+def serve_phase(api, tensor, plan, cfg, store, kept, tmp: str,
+                cards: int) -> dict:
+    """Phase 12: ``CPService`` booted from phase 11(b)'s checkpoints over a
+    copy of phase 3's store, under load, through a background refit that
+    launches ``ec_sorted``, a rollback, then the analysis passes."""
+    from repro_torch.serve import CPService
+    from repro_torch.store import TensorStore
+    ck = os.path.join(tmp, "ckpt")
+    path = os.path.join(tmp, "serve.store")
+    t0 = time.perf_counter()
+    shutil.copytree(store.path, path)
+    copy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    svc = CPService.boot(ck, store=TensorStore(path), config=cfg)
+    boot_s = time.perf_counter() - t0
+    out = {"copy_s": copy_s, "boot_s": boot_s}
+    try:
+        snap = svc.engine.snapshot
+        print(f"serve (a): booted v{snap.version} ({snap.source}, shape "
+              f"{snap.shape}, R {snap.rank}, on {snap.device}) in "
+              f"{boot_s:.2f} s over a copy of the store ({copy_s:.2f} s)",
+              flush=True)
+        out["load"] = query_load(svc, snap.host_factors(), snap.host_lam())
+        out["refresh"] = refresh_during_queries(svc, tensor, path)
+        out["rollback"] = rollback_case(svc, ck, snap.shape, snap.rank)
+        rep = svc.metrics_report()
+        for op, lat in sorted(rep["latency"].items()):
+            print(f"  latency {op}: {lat['count']} samples, p50 "
+                  f"{lat['p50_ms']:.3f} ms, p99 {lat['p99_ms']:.3f} ms")
+        g = rep["gauges"]
+        print(f"  buckets: reconstruct {g.get('reconstruct_buckets')}, topk"
+              f" {g.get('topk_buckets')}; counters {rep['counters']}",
+              flush=True)
+        out["latency"] = rep["latency"]
+        out["gauges"] = g
+        out["counters"] = rep["counters"]
+        out["analysis"] = analysis_case(api, plan, cfg, store, kept, svc,
+                                        cards)
+    finally:
+        svc.close()
+    out["launches"] = out["refresh"]["launches"]
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=3e-2,
@@ -2144,6 +2554,10 @@ def run_phases(args, api, kind: str, smi: str, tmp: str) -> None:
     phase("operations")
     ops = operations_phase(api, tensor, plan, cfg, store, kept, fits, recs,
                            tmp, args.cards)
+
+    phase("serve + analysis")
+    serve = serve_phase(api, tensor, plan, cfg, store, kept, tmp,
+                        args.cards)
     del kept, store
 
     phase("summary")
@@ -2173,6 +2587,8 @@ def run_phases(args, api, kind: str, smi: str, tmp: str) -> None:
             # the operations phase's checkpointed, restored, traced and
             # profiled runs
             "operations_launches": ops["launches"][name],
+            # the serving refit's sweeps (phase 12)
+            "serve_launches": serve["launches"][name],
             "max_abs_err": max(x["max_abs_err"] for x in r),
             "ms": sum(x["ms"] for x in r),
             "plain_ms": sum(x["plain_ms"] for x in r),
@@ -2200,7 +2616,7 @@ def run_phases(args, api, kind: str, smi: str, tmp: str) -> None:
               "sweep_wall_s": walls,
               "per_mode": recs, "multi_device": md, "rebalance": rb,
               "store": st, "ref_order": ref_rec, "presets": presets,
-              "streaming": stream, "operations": ops,
+              "streaming": stream, "operations": ops, "serve": serve,
               "kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

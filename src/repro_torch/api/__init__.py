@@ -17,11 +17,14 @@ CPU with the kernels' plain PyTorch versions (pass ``device="cpu"`` to
 out-of-core :class:`~repro_torch.store.TensorStore`, whose plan runs
 resident or, with ``runtime.streaming``, in budget-sized super-shards.
 Everything else (``save_plan``/``load_plan``, ``solver.sweep()``,
-``solver.checkpoint()/restore()``, the tracer behind ``runtime.trace``)
-hangs off these three calls. The legacy
+``solver.checkpoint()/restore()``, the tracer behind ``runtime.trace``,
+``api.plan(..., analyze="strict")`` and ``solver.audit()`` with their
+:class:`AnalysisError` / :class:`Finding`, ``solver.export_snapshot()`` for
+:mod:`repro_torch.serve`) hangs off these three calls. The legacy
 ``repro_torch.core.decompose.cp_decompose`` is a deprecated shim over
 exactly this pipeline.
 """
+from repro_torch.analysis.model import AnalysisError, Finding
 from repro_torch.api.config import (DecomposeConfig, ExchangeConfig,
                                     KernelConfig, PartitionConfig, PRESETS,
                                     RuntimeConfig, ScheduleConfig,
@@ -39,4 +42,5 @@ __all__ = [
     "plan", "plan_signature", "save_plan", "load_plan", "PlanSignatureError",
     "CACHE_STATS", "reset_cache_stats",
     "compile", "CPSolver",
+    "AnalysisError", "Finding",
 ]

@@ -16,14 +16,15 @@ reference's format (``manifest.json`` + ``arrays.npz``, format 3), and
 :func:`plan_signature` gives the reference's hex string for the same
 tensor, config and device count, so a plan cache directory is shared
 between the two packages: a plan saved by one loads in the other bit for
-bit, lazy store plans included. The static plan analysis of the reference
-(``analyze=``) is a later slice of the port.
+bit, lazy store plans included. ``analyze=`` runs the static plan rules of
+:mod:`repro_torch.analysis` on the result, as the reference's does.
 """
 from __future__ import annotations
 
 import hashlib
 import json
 import os
+import sys
 
 import numpy as np
 import torch
@@ -283,9 +284,25 @@ def _rebind_lazy_modes(path: str, manifest: dict, g2ps, p2gs):
 
 # -- the public entry ---------------------------------------------------------
 
+def _analyze_plan(p: CPPlan, config: DecomposeConfig, analyze: str) -> CPPlan:
+    """Run the static plan rules on a built or cache-loaded plan.
+    ``"strict"`` raises :class:`~repro_torch.analysis.AnalysisError` on
+    error findings; ``"warn"`` prints every finding to stderr; ``"off"``
+    skips the pass entirely (the plan rules are not even imported)."""
+    if analyze == "off":
+        return p
+    from repro_torch.analysis import AnalysisError, check_plan, errors
+    findings = check_plan(p, config)
+    for f in findings:
+        print(f"analysis: {f}", file=sys.stderr)
+    if analyze == "strict" and errors(findings):
+        raise AnalysisError(errors(findings))
+    return p
+
+
 def plan(tensor: SparseTensor | TensorStore, config: DecomposeConfig, *,
          cache_dir: str | None = None, num_devices: int | None = None,
-         device=None) -> CPPlan:
+         device=None, analyze: str = "off") -> CPPlan:
     """Preprocess ``tensor`` for ``config``: autotune the blocking geometry
     (if asked), partition every mode with the configured policy,
     replication, geometry and layout for :func:`resolve_num_devices`
@@ -300,7 +317,16 @@ def plan(tensor: SparseTensor | TensorStore, config: DecomposeConfig, *,
     the partition is then computed from the store's manifest histograms
     alone — no chunk is read here — and the plan's modes materialize
     per-device shards from the store at compile time
-    (:class:`~repro_torch.store.StoreModePartition`)."""
+    (:class:`~repro_torch.store.StoreModePartition`).
+
+    ``analyze`` runs the :mod:`repro_torch.analysis` plan rules on the
+    result (built OR cache-loaded — a stale cached plan fails the same
+    checks): ``"strict"`` raises on any error finding before the plan
+    escapes, ``"warn"`` reports findings to stderr, ``"off"`` (default)
+    skips."""
+    if analyze not in ("off", "warn", "strict"):
+        raise ValueError(f"analyze must be 'off', 'warn', or 'strict', "
+                         f"got {analyze!r}")
     with obs_trace.span("plan", annotate=True):
         nd = resolve_num_devices(config, num_devices, device=device)
         tile, block_p = resolve_geometry(tensor.nmodes, config,
@@ -316,7 +342,7 @@ def plan(tensor: SparseTensor | TensorStore, config: DecomposeConfig, *,
                         load_plan(entry, expect_signature=sig))
                     CACHE_STATS["hits"] += 1
                     obs.get_registry().inc("plan.cache_hits")
-                    return p
+                    return _analyze_plan(p, config, analyze)
                 except (PlanSignatureError, OSError, KeyError, ValueError):
                     pass  # corrupted/stale entry: rebuild below, overwrite
 
@@ -332,4 +358,4 @@ def plan(tensor: SparseTensor | TensorStore, config: DecomposeConfig, *,
                 save_plan(p, os.path.join(cache_dir, sig[:32]), signature=sig)
             except OSError:
                 pass  # read-only filesystems: the plan still works in-process
-        return p
+        return _analyze_plan(p, config, analyze)

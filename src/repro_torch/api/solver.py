@@ -688,6 +688,30 @@ class CPSolver:
             sweeps=s.sweep,
         )
 
+    def export_snapshot(self, *, version: int = 1, source: str = "solver"):
+        """Export the current state as an immutable serving
+        :class:`~repro_torch.serve.engine.FactorSnapshot` on the mesh's
+        first device — the hand-off from a training/refit session to a
+        :class:`~repro_torch.serve.ServingEngine` (forces a sync like
+        :meth:`result`)."""
+        from repro_torch.serve.engine import FactorSnapshot
+        return FactorSnapshot.from_result(self.result(), version=version,
+                                          source=source,
+                                          device=self.mesh.devices[0])
+
+    def audit(self, *, modes=None) -> list:
+        """Run the :mod:`repro_torch.analysis` passes against THIS compiled
+        session: the plan rules over the live (possibly rebalanced) plan
+        and the recorded-operation audit of each mode's update, run on
+        copies of the state, which stays bitwise as it was (no
+        ``(nnz, R)`` gathered intermediate in the fused/sorted EC, no host
+        synchronisation in the update, bf16 on the wire when asked).
+        Returns the findings (empty == clean)."""
+        from repro_torch.analysis import check_plan, hlo_audit
+        findings = check_plan(self.plan, self.config)
+        findings += hlo_audit.audit_solver(self, modes=modes)
+        return findings
+
 
 def compile(plan: CPPlan, config: DecomposeConfig, *,
             mesh: dmttkrp.CPMesh | None = None, device=None) -> CPSolver:

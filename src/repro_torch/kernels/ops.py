@@ -112,7 +112,9 @@ def kernel_args(variant, indices, values, local_rows, block_to_tile,
         return (values, (local_rows % tile).to(torch.int32), block_to_tile,
                 [factors[w].index_select(0, indices[:, w])
                  for w in in_modes])
-    input_indices = indices[:, in_modes].contiguous()
+    # one column at a time: indexing with the list would copy it to the
+    # card from pageable memory, a host synchronisation (AH-H002)
+    input_indices = torch.stack([indices[:, w] for w in in_modes], dim=1)
     in_factors = [factors[w] for w in in_modes]
     if variant == "fused":
         return (values, (local_rows % tile).to(torch.int32), block_to_tile,

@@ -14,9 +14,12 @@ with ``index_add_`` in the order of the slots. On a CPU tensor
 the reference's ``segment_sum`` (held by the tests). On a CUDA tensor its
 default algorithm uses atomics, whose order changes from run to run; so
 every ``index_add_`` here runs through :func:`slot_order_index_add`, which
-selects PyTorch's deterministic algorithm for that one call (a stable sort
-of the indices, then each row's terms added in sorted order: slot order)
-and restores the caller's setting after. The callers set no flag.
+on the card calls what ``index_add_`` calls under
+``torch.use_deterministic_algorithms(True)`` — ``index_put_`` with
+``accumulate=True``, a stable sort of the indices, then each row's terms
+added in sorted order: slot order — without setting that process-wide
+switch, which would also change what other threads' operations do (a
+cuBLAS product raises under it). The callers set no flag.
 
 :func:`ec_rows_chunked` computes the same function in the fixed two-level
 order of the CUDA kernels: a tile's run of at most ``chunk_blocks`` blocks
@@ -37,18 +40,16 @@ def slot_order_index_add(out: torch.Tensor, index: torch.Tensor,
                          src: torch.Tensor) -> torch.Tensor:
     """``out.index_add_(0, index, src)`` with each row's terms added in
     slot order, on every device. A CPU tensor already does so. On a CUDA
-    tensor the call runs under ``torch.use_deterministic_algorithms(True)``
-    and the caller's setting (warn-only included) is restored after, also
-    when the call raises."""
+    tensor this is ``out.index_put_((index,), src, accumulate=True)``, the
+    call ``index_add_`` makes under ``torch.use_deterministic_algorithms``
+    (the same sort-based kernel, so the same bits), which is deterministic
+    with the switch off: no process-wide setting changes, so an operation
+    on another thread runs as it would without this call. That kernel adds
+    each row's slot-order sum of terms to ``out``: into a zero ``out``, as
+    every caller here adds, the CPU's bits."""
     if out.device.type != "cuda":
         return out.index_add_(0, index, src)
-    was = torch.are_deterministic_algorithms_enabled()
-    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
-        return out.index_add_(0, index, src)
-    finally:
-        torch.use_deterministic_algorithms(was, warn_only=warn_only)
+    return out.index_put_((index.long(),), src, accumulate=True)
 
 
 def ec_rows_ref(values: torch.Tensor, gathered_rows: Sequence[torch.Tensor],

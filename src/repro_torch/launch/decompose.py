@@ -16,6 +16,8 @@
     PYTHONPATH=src python -m repro_torch.launch.decompose --scale 2e-5 \
         --device cpu --plan-cache /tmp/plans --ckpt /tmp/ckpt \
         --trace-out /tmp/trace.json --events-out /tmp/events.jsonl
+    PYTHONPATH=src python -m repro_torch.launch.decompose --preset sorted \
+        --scale 2e-5 --device cpu --analyze warn
 
 Runs the staged repro_torch.api pipeline — on ``cuda:0 .. cuda:N-1`` (one
 logical device per card; fewer visible cards than ``--devices`` raises)
@@ -37,7 +39,9 @@ every sweep and resumes from the latest checkpoint unless ``--no-resume``;
 ``--trace-out`` turns the span tracer on for the whole invocation and
 writes a Chrome-trace JSON (``python -m repro_torch.obs TRACE.json``
 validates it), and ``--events-out`` mirrors every structured event as JSON
-lines, live.
+lines, live. ``--analyze warn|strict`` runs the
+:mod:`repro_torch.analysis` plan rules on the plan and audits the compiled
+solver's recorded operations (``strict`` aborts on any error finding).
 """
 from __future__ import annotations
 
@@ -101,6 +105,12 @@ def main(argv=None):
                     metavar="MB",
                     help="per-device memory budget for --stream, in MiB "
                          "(covers all stream buffers of one mode shard)")
+    ap.add_argument("--analyze", choices=("off", "warn", "strict"),
+                    default="off",
+                    help="run the repro_torch.analysis plan rules on the "
+                         "plan (strict: abort on any error finding) and, "
+                         "with warn/strict, audit the compiled solver's "
+                         "recorded operations")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="enable span tracing and write a Chrome-trace "
                          "JSON (chrome://tracing / ui.perfetto.dev) "
@@ -153,7 +163,8 @@ def main(argv=None):
           f"rebalance={cfg.schedule.rebalance} device={args.device}")
 
     t0 = clock.now()
-    plan = api.plan(t, cfg, cache_dir=args.plan_cache, device=args.device)
+    plan = api.plan(t, cfg, cache_dir=args.plan_cache, device=args.device,
+                    analyze=args.analyze)
     t_plan = clock.now() - t0
     part = plan.modes[0]
     print(f"geometry: tile={part.tile} block_p={part.block_p} "
@@ -163,6 +174,14 @@ def main(argv=None):
     t_compile = clock.now() - t0 - t_plan
     if args.events_out:
         solver.events.set_sink(args.events_out)
+    if args.analyze != "off":
+        findings = solver.audit()
+        for f in findings:
+            print(f"analysis: {f}")
+        if args.analyze == "strict" and \
+                any(f.severity == "error" for f in findings):
+            from repro_torch.analysis import AnalysisError, errors
+            raise AnalysisError(errors(findings))
     if args.ckpt and not args.no_resume:
         solver.restore()
     t1 = clock.now()

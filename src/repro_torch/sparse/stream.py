@@ -60,6 +60,11 @@ from typing import Hashable, Iterable
 import numpy as np
 import torch
 
+# methods whose contract is "caller holds lock X" call
+# ``assert_holds(lock, "X")``, a no-op unless AMPED_ANALYSIS_ASSERT_LOCKS is
+# set (re-exported here for callers that import it from this module)
+from repro_torch.analysis.runtime import (ENV_ASSERT, LockNotHeldError,
+                                          assert_holds)
 from repro_torch.core.mttkrp import (CPMesh, DeviceArrays, Placed,
                                      place_mode, shard_super_shard)
 from repro_torch.core.partition import CPPlan
@@ -67,35 +72,6 @@ from repro_torch.obs import clock
 
 __all__ = ["ShardStreamer", "SuperShardStreamer", "WindowSpill",
            "assert_holds", "LockNotHeldError", "ENV_ASSERT"]
-
-# The port's copy of the reference's ``repro.analysis.runtime`` lock check
-# (its analysis package is a later slice of the port): methods whose
-# contract is "caller holds lock X" call ``assert_holds(lock, "X")``, a
-# no-op unless AMPED_ANALYSIS_ASSERT_LOCKS is set.
-ENV_ASSERT = "AMPED_ANALYSIS_ASSERT_LOCKS"
-
-
-class LockNotHeldError(AssertionError):
-    pass
-
-
-def _definitely_not_held(lock) -> bool:
-    owned = getattr(lock, "_is_owned", None)
-    if callable(owned):                      # RLock / Condition: exact
-        return not owned()
-    if lock.acquire(blocking=False):         # plain Lock: best effort
-        lock.release()
-        return True
-    return False
-
-
-def assert_holds(lock, name: str = "lock") -> None:
-    if os.environ.get(ENV_ASSERT, "") in ("", "0"):
-        return
-    if _definitely_not_held(lock):
-        raise LockNotHeldError(
-            f"method requires {name} held (see '# holds: {name}' "
-            f"annotation); caller did not acquire it")
 
 
 class WindowSpill:

@@ -24,7 +24,7 @@ import repro_torch.api as api  # noqa: E402
 from repro_torch.comm import ExchangeSpec  # noqa: E402
 from repro_torch.core import mttkrp as dm  # noqa: E402
 from repro_torch.core.partition import build_plan  # noqa: E402
-from repro_torch.core.coo import random_sparse  # noqa: E402
+from repro_torch.core.coo import SparseTensor, random_sparse  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.mttkrp_blocked import (RING_DEPTH,  # noqa: E402
                                                 ec_blocked)
@@ -701,3 +701,147 @@ def test_placed_wait_marks_the_shards_and_copies_nothing(cuda):
     arrays = placed.wait()
     assert torch.cuda.max_memory_allocated(cuda) == before
     assert arrays[0].values.data_ptr() == placed.arrays[0].values.data_ptr()
+
+
+# -- serving and the audit on the card ----------------------------------------
+
+def test_slot_order_index_add_is_the_deterministic_index_add(cuda):
+    """``ref.slot_order_index_add`` on the card gives the bits of
+    ``index_add_`` under ``torch.use_deterministic_algorithms(True)``, and
+    leaves that switch off, so an operation on another thread is not
+    changed by it (a cuBLAS product would raise under it). Into a zero
+    output, as every caller adds, it gives the CPU's slot-order bits (into
+    a nonzero one the card adds each row's sum of terms to it)."""
+    from repro_torch.kernels.ref import slot_order_index_add
+    rng = np.random.default_rng(0)
+    index = torch.from_numpy(rng.integers(0, 50, 20000)).to(cuda)
+    src = torch.from_numpy(rng.standard_normal((20000, 32)).astype(
+        np.float32)).to(cuda)
+    base = torch.from_numpy(rng.standard_normal((50, 32)).astype(
+        np.float32)).to(cuda)
+    got = slot_order_index_add(base.clone(), index, src)
+    assert not torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        want = base.clone().index_add_(0, index, src)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    zero = torch.zeros_like(base)
+    cpu = slot_order_index_add(zero.cpu(), index.cpu(), src.cpu())
+    torch.testing.assert_close(
+        slot_order_index_add(zero, index, src).cpu(), cpu, rtol=0, atol=0)
+
+
+SERVE_RANK, SERVE_SHAPE = 4, (48, 40, 32)
+
+
+def _serve_setup(tmp_path):
+    """A base store of an exactly low-rank tensor, a 10-sweep fit on the
+    card with checkpoints, and the appended rest (tests/test_serve.py's
+    fixture)."""
+    from repro_torch.sparse.io import make_lowrank_tensor
+    from repro_torch.store import TensorStore, write_store_from_coo
+    t = make_lowrank_tensor(SERVE_SHAPE, SERVE_RANK, 3000, seed=0)
+    base_n = int(t.nnz * 0.85)
+    path = str(tmp_path / "grow.store")
+    write_store_from_coo(SparseTensor(t.indices[:base_n], t.values[:base_n],
+                                      t.shape), path, chunk_nnz=512)
+    ckpt = str(tmp_path / "ckpts")
+    cfg = api.DecomposeConfig(rank=SERVE_RANK, runtime=api.RuntimeConfig(
+        num_devices=1, tol=0.0, seed=0))
+    with api.compile(api.plan(TensorStore(path), cfg), cfg.with_overrides(
+            {"runtime.checkpoint_dir": ckpt})) as solver:
+        result = solver.run(10)
+    return t, base_n, path, ckpt, cfg, result
+
+
+def test_serving_engine_parity_on_the_card(cuda, tmp_path):
+    from repro_torch.serve import FactorSnapshot, ServingEngine
+    *_, result = _serve_setup(tmp_path)
+    engine = ServingEngine(FactorSnapshot.from_result(result))
+    assert engine.snapshot.device.type == "cuda"
+    rng = np.random.default_rng(1)
+    for n in (1, 7, 9, 100, 257):
+        coords = np.stack([rng.integers(0, s, size=n) for s in SERVE_SHAPE],
+                          axis=1)
+        np.testing.assert_allclose(engine.reconstruct_batch(coords),
+                                   result.reconstruct_at(coords),
+                                   rtol=1e-4, atol=1e-5)
+    scores, idx = engine.topk_slice(np.array([3, 0, 5]), mode=1, k=5)
+    dense = result.reconstruct_at(np.stack(
+        [np.full(SERVE_SHAPE[1], 3), np.arange(SERVE_SHAPE[1]),
+         np.full(SERVE_SHAPE[1], 5)], axis=1))
+    np.testing.assert_allclose(scores, np.sort(dense)[::-1][:5],
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(dense[idx], scores, rtol=1e-4, atol=1e-5)
+
+
+def test_concurrent_queries_during_background_refit_on_the_card(cuda,
+                                                                tmp_path):
+    """The ``ref`` refit (the default config) runs on a background thread
+    while this thread queries through the batcher and the top-k path:
+    every answer is bitwise v1's or v2's, and no query raises (the refit's
+    slot-order sums set no process-wide switch)."""
+    from repro_torch.serve import CPService
+    from repro_torch.store import TensorStore, append_to_store
+    t, base_n, path, ckpt, cfg, _ = _serve_setup(tmp_path)
+    rng = np.random.default_rng(5)
+    coords = np.stack([rng.integers(0, s, size=64) for s in SERVE_SHAPE],
+                      axis=1)
+    with CPService.boot(ckpt, store=TensorStore(path), config=cfg) as svc:
+        want_v1 = svc.reconstruct(coords)
+        top_v1 = svc.topk(coords[0], mode=1, k=5)
+        append_to_store(path, t.indices[base_n:].astype(np.int64),
+                        t.values[base_n:])
+        assert svc.refresh(sweeps=4, wait=False)["background"]
+        answers, tops = [], []
+        while True:  # the last query starts after the publish
+            running = svc.metrics.gauge("refit_in_progress", 0) == 1
+            answers.append(svc.reconstruct(coords))
+            tops.append(svc.topk(coords[0], mode=1, k=5))
+            if not running:
+                break
+        done = svc.wait_refresh()
+        assert done["published"] and svc.engine.version == 2
+        want_v2 = svc.reconstruct(coords)
+        top_v2 = svc.topk(coords[0], mode=1, k=5)
+    assert not np.array_equal(want_v1, want_v2)
+    for a in answers:
+        assert np.array_equal(a, want_v1) or np.array_equal(a, want_v2)
+    for s, _ in tops:
+        assert np.array_equal(s, top_v1[0]) or np.array_equal(s, top_v2[0])
+    # queries overlapped the refit (v1 answers after refresh() returned)
+    # and the one begun after the publish answered as v2
+    assert np.array_equal(answers[0], want_v1)
+    assert np.array_equal(answers[-1], want_v2)
+    assert np.array_equal(tops[-1][0], top_v2[0])
+
+
+def test_audit_on_the_card_names_the_eigh_sync(cuda):
+    """On the card the audit reports the host synchronisation of
+    ``_pinv_psd``'s ``torch.linalg.eigh`` under AH-H002 in every mode's
+    update and nothing else, and the solver's state stays bitwise as it
+    was."""
+    t = skewed_tensor()
+    cfg = api.preset("sorted", {"rank": 16, "kernel.autotune": False,
+                                "partition.tile": 8,
+                                "partition.block_p": 64,
+                                "runtime.num_devices": 1})
+    with api.compile(api.plan(t, cfg), cfg) as solver:
+        solver.run(2)
+        before = [[f.clone() for f in reps] for reps in solver.state.factors]
+        lam = solver.state.lam[0].clone()
+        launched = _build.LAUNCHES["ec_sorted"]
+        findings = solver.audit()
+        assert _build.LAUNCHES["ec_sorted"] > launched  # the kernel ran
+        assert torch.cuda.get_sync_debug_mode() == 0
+        for reps, want in zip(solver.state.factors, before):
+            for f, g in zip(reps, want):
+                assert torch.equal(f, g)
+        assert torch.equal(solver.state.lam[0], lam)
+    assert {f.rule for f in findings} == {"AH-H002"}, findings
+    assert sorted(f.location for f in findings) == [
+        f"mode={d} update" for d in range(3)], findings
+    assert all("_pinv_psd" in f.message and "core/als.py" in f.message
+               for f in findings), findings

@@ -373,11 +373,16 @@ def test_tile_runs(b2t, expect):
 
 def test_isolation_from_jax_and_the_reference():
     """The port and chip_smoke.py import neither jax nor anything of the
-    reference package."""
+    reference package: every module of the port, the serving and analysis
+    packages among them, and the smoke's own imports."""
     code = (
         "import sys, pkgutil, importlib, repro_torch\n"
+        "import repro_torch.serve, repro_torch.analysis\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):"
         "\n    importlib.import_module(m.name)\n"
+        "assert {'repro_torch.serve.service', 'repro_torch.serve.__main__',"
+        " 'repro_torch.analysis.hlo_audit',"
+        " 'repro_torch.analysis.__main__'} <= set(sys.modules)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
