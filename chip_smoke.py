@@ -185,7 +185,25 @@ Phases, each of which exits non-zero on failure:
    with the ``overlap`` exchange on a bf16 wire; AH-H006 clean after (b);
    the concurrency lint clean. Prints p50/p99 per operation, rows/s,
    ``topk`` ms and the bucket counts.
-13. Summary: one JSON line ``{"kernels": [...]}`` (``ms``, ``plain_ms`` and
+13. LM serve: the port's LM substrate (``repro_torch.models``), which
+   reaches no EC kernel and launches none. (a) Each of the ten smoke
+   configs of ``repro_torch.configs.ARCH_IDS``, seeded on the CPU and
+   copied to the card: the card's forward within 1e-4 (relative to
+   max(1, max|logit|), f32) of the CPU's, and prefill then three
+   decode steps within 2e-2 of the card's own forward. (b) gemma3-1b
+   at its full width in f32 (1.0 B parameters, seeded on the card), B 2,
+   S 1,024: ``forward`` against ``prefill(S-8)`` and 8 decode steps,
+   within 2e-2. (c) gemma3-1b at its full width in bf16, 4 seeded prompts
+   of 1,024 tokens, 64 greedy tokens, twice with CUDA events around the
+   prefill and every step, then once through ``generate``: the same
+   tokens every time, in range, finite logits, the first token the
+   forward's argmax wherever its top-2 margin exceeds bf16 rounding;
+   prints prefill ms, decode ms per token (median, p90), tokens/s and the
+   peak allocation. (d) deepseek-v2-lite at its full width in bf16 (16 B
+   parameters, (c)'s model freed first), B 2, prompts of 256, 8 greedy
+   tokens, the same runs and gates but the first-token one (capacity 1.25
+   drops other copies at 512 tokens than at 2). TF32 is off throughout.
+14. Summary: one JSON line ``{"kernels": [...]}`` (``ms``, ``plain_ms`` and
    ``bound_ms`` summed over the three modes, i.e. one sweep's launches;
    ``launches`` from the main-path run, ``multi_device_launches`` from the
    multi-device path's, ``rebalance_launches`` from the rebalance phase's
@@ -1832,24 +1850,24 @@ def _device_time_total(prof) -> float:
                for e in prof.key_averages())
 
 
-def profiled_events(solver, first: int, sweeps: int, tmp: str, *,
-                    with_stack: bool = False):
-    """Sweeps ``first`` .. ``first + sweeps - 1`` of ``solver`` under
-    ``torch.profiler`` (CPU and CUDA activities), each in a
-    ``record_function`` scope, all in one ``profiled_window`` that ends in
-    a synchronise. Returns ``(events, None)`` — ``(name, start_ns,
-    end_ns, category)`` from the profiler's Chrome trace, whose CPU and
-    device times share one clock — or ``(None, why)`` when the profiler
-    shows no device time or fails."""
+def profiled_events(step, first: int, count: int, tmp: str, *,
+                    with_stack: bool = False, unit: str = "sweep"):
+    """``step(k)`` for ``k`` in ``first .. first + count - 1`` (a sweep, or
+    a decode step) under ``torch.profiler`` (CPU and CUDA activities), each
+    in a ``record_function`` scope named ``unit k``, all in one
+    ``profiled_window`` that ends in a synchronise. Returns
+    ``(events, None)`` — ``(name, start_ns, end_ns, category)`` from the
+    profiler's Chrome trace, whose CPU and device times share one clock —
+    or ``(None, why)`` when the profiler shows no device time or fails."""
     from torch.profiler import ProfilerActivity, profile, record_function
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA],
                      with_stack=with_stack) as prof:
             with record_function("profiled_window"):
-                for k in range(first, first + sweeps):
-                    with record_function(f"sweep {k}"):
-                        solver.sweep()
+                for k in range(first, first + count):
+                    with record_function(f"{unit} {k}"):
+                        step(k)
                 sync_all()
     except RuntimeError as e:
         return None, f"torch.profiler failed: {e}"
@@ -1869,15 +1887,13 @@ def profiled_events(solver, first: int, sweeps: int, tmp: str, *,
             for e in spans], None
 
 
-def timeline(events, host_scopes) -> dict:
+def device_busy(events, host_scopes) -> dict:
     """The device's busy share of the ``profiled_window`` (the union of
-    kernel and copy intervals), the longest device operations by name, the
-    longest idle gaps with the host scopes open at their midpoints, and
-    all idle time summed by scope: the innermost ``repro_torch`` frame
-    when the trace has Python stacks, else the innermost host scope."""
-    cpu = [e for e in events if e[3] in host_scopes]
+    kernel and copy intervals), its device operations, and the longest of
+    them by name; with the window and the merged busy intervals."""
     dev = [e for e in events if is_device_work(e[3])]
-    w0, w1 = next((a, b) for n, a, b, _ in cpu if n == "profiled_window")
+    w0, w1 = next((a, b) for n, a, b, c in events
+                  if c in host_scopes and n == "profiled_window")
     busy = _merged([(max(a, w0), min(b, w1))
                     for _, a, b, _ in dev if b > w0 and a < w1])
     busy_ns = sum(b - a for a, b in busy)
@@ -1886,6 +1902,24 @@ def timeline(events, host_scopes) -> dict:
         o = ops.setdefault(n, [0.0, 0])
         o[0] += (b - a) / 1e6
         o[1] += 1
+    return {
+        "window": w0, "window_end": w1, "busy": busy,
+        "window_ms": (w1 - w0) / 1e6, "busy_ms": busy_ns / 1e6,
+        "busy_share": busy_ns / (w1 - w0), "device_ops": len(dev),
+        "top_ops": [{"name": n, "ms": ms, "count": c} for n, (ms, c) in
+                    sorted(ops.items(), key=lambda kv: -kv[1][0])[:TOP]]}
+
+
+def timeline(events, host_scopes) -> dict:
+    """The device's busy share of the ``profiled_window`` (the union of
+    kernel and copy intervals), the longest device operations by name, the
+    longest idle gaps with the host scopes open at their midpoints, and
+    all idle time summed by scope: the innermost ``repro_torch`` frame
+    when the trace has Python stacks, else the innermost host scope."""
+    cpu = [e for e in events if e[3] in host_scopes]
+    base = device_busy(events, host_scopes)
+    w0, w1 = base.pop("window"), base.pop("window_end")
+    busy = base.pop("busy")
     edges = [w0] + [x for ab in busy for x in ab] + [w1]
     gaps = sorted(((edges[i + 1] - edges[i], edges[i], edges[i + 1])
                    for i in range(0, len(edges) - 1, 2)
@@ -1904,10 +1938,7 @@ def timeline(events, host_scopes) -> dict:
                    open_[0] if open_ else "(no host op)")
         idle[key] = idle.get(key, 0.0) + g / 1e6
     return {
-        "window_ms": (w1 - w0) / 1e6, "busy_ms": busy_ns / 1e6,
-        "busy_share": busy_ns / (w1 - w0), "gap_count": len(gaps),
-        "top_ops": [{"name": n, "ms": ms, "count": c} for n, (ms, c) in
-                    sorted(ops.items(), key=lambda kv: -kv[1][0])[:TOP]],
+        **base, "gap_count": len(gaps),
         "gaps": [{"ms": g / 1e6,
                   "scope": " < ".join(scopes((a + b) // 2)[:3])
                   or "(no host op)"} for g, a, b in gaps[:TOP]],
@@ -1941,7 +1972,8 @@ def profile_case(api, plan, cfg, tmp: str, launched: dict) -> dict:
     with api.compile(plan, cfg) as solver:
         counted_run(solver, 1, 1, "untraced run (sweep 1)", launched)
         _build.reset_launch_counts()
-        events, why = profiled_events(solver, 2, OPS_SWEEPS - 1, tmp)
+        events, why = profiled_events(lambda k: solver.sweep(), 2,
+                                      OPS_SWEEPS - 1, tmp)
         swept = OPS_SWEEPS - 1
         if why is None:
             t = timeline(events, HOST_SCOPES)
@@ -1955,7 +1987,8 @@ def profile_case(api, plan, cfg, tmp: str, launched: dict) -> dict:
                 print(f"  device op {o['ms']:9.3f} ms x{o['count']:4d}  "
                       f"{o['name'][:100]}", flush=True)
             print_idle(t, "innermost host scope")
-            events, _ = profiled_events(solver, OPS_SWEEPS + 1, 1, tmp,
+            events, _ = profiled_events(lambda k: solver.sweep(),
+                                        OPS_SWEEPS + 1, 1, tmp,
                                         with_stack=True)
             swept += 1
             if events is not None:
@@ -2404,6 +2437,362 @@ def serve_phase(api, tensor, plan, cfg, store, kept, tmp: str,
     return out
 
 
+LM_TOL = 1e-4      # the port on the card against the port on the CPU, f32
+LM_PD_TOL = 2e-2   # prefill + decode against forward (the reference's bound)
+LM_DEVICE = "cuda"
+
+
+def lm_rel(got, ref) -> float:
+    """max|got - ref| / max(1, max|ref|), in float64 on the host."""
+    got = got.detach().double().cpu()
+    ref = ref.detach().double().cpu()
+    return float((got - ref).abs().max() / max(1.0, float(ref.abs().max())))
+
+
+def lm_extra(cfg, batch: int, device):
+    """The reference test's extras (frames / images) for the smoke archs."""
+    import torch
+    rng = np.random.default_rng(0)
+    if cfg.encoder is not None:
+        a = {"frames": rng.normal(size=(batch, 12, cfg.d_model))}
+    elif any(s.mixer == "cross_attn" for s in cfg.pattern):
+        a = {"images": rng.normal(size=(batch, 10, cfg.d_model))}
+    else:
+        return None
+    return {k: torch.from_numpy(v.astype(np.float32)).to(device)
+            for k, v in a.items()}
+
+
+def prefill_decode_rel(model, toks, full, tail: int, extra=None) -> float:
+    """``prefill`` of all but the last ``tail`` tokens, then ``tail`` decode
+    steps of the given tokens, against ``forward``'s logits ``full``."""
+    import torch
+    s = toks.shape[1]
+    s0 = s - tail
+    lg, cache = model.prefill(toks[:, :s0], s, extra=extra)
+    errs = [float((lg[:, -1] - full[:, s0 - 1]).abs().max())]
+    for i in range(tail):
+        lg, cache = model.decode_step(toks[:, s0 + i:s0 + i + 1], cache)
+        errs.append(float((lg[:, 0] - full[:, s0 + i]).abs().max()))
+    return max(errs) / max(1.0, float(full.abs().max()))
+
+
+def lm_smoke_archs() -> dict:
+    """(a) every smoke arch: card against CPU, prefill/decode against
+    forward."""
+    import copy
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models.transformer import Model
+    out = {}
+    for arch in ARCH_IDS:
+        cfg = get_config(arch, "smoke")
+        cpu = Model(cfg, device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+        gpu = copy.deepcopy(cpu).to(LM_DEVICE)
+        toks = torch.from_numpy(
+            np.random.default_rng(1).integers(0, cfg.vocab, (2, 16)))
+        ex = lm_extra(cfg, 2, LM_DEVICE)
+        with torch.no_grad():
+            ref = cpu(toks, extra=lm_extra(cfg, 2, "cpu"))
+            full = gpu(toks.to(LM_DEVICE), extra=ex)
+        dev_rel = lm_rel(full, ref)
+        if cfg.n_experts:
+            # capacity is computed over the call's tokens, so prefill and
+            # decode drop other copies than forward does: hold them to
+            # forward with capacity for every copy (the same weights)
+            cfg = dataclasses.replace(cfg,
+                                      capacity_factor=float(cfg.n_experts))
+            gpu = Model(cfg, device="cpu", generator=torch.Generator(
+                ).manual_seed(0)).to(LM_DEVICE)
+            with torch.no_grad():
+                full = gpu(toks.to(LM_DEVICE), extra=ex)
+        pd_rel = prefill_decode_rel(gpu, toks.to(LM_DEVICE), full, 3,
+                                    extra=ex)
+        print(f"LM (a) {arch}: card vs CPU forward rel {dev_rel:.3e}; "
+              f"prefill + 3 decode steps vs forward rel {pd_rel:.3e}",
+              flush=True)
+        if not dev_rel < LM_TOL:
+            fail(f"LM {arch}: card forward differs from the CPU's by "
+                 f"{dev_rel:.3e} (relative; bound {LM_TOL})")
+        if not pd_rel < LM_PD_TOL:
+            fail(f"LM {arch}: prefill/decode differs from forward by "
+                 f"{pd_rel:.3e} (bound {LM_PD_TOL})")
+        out[arch] = {"card_vs_cpu_rel": dev_rel, "prefill_decode_rel": pd_rel}
+    return out
+
+
+def timed_greedy(model, prompts, steps: int, cache_len: int) -> dict:
+    """``generate``'s greedy loop with a CUDA event after the prefill and
+    after every decode step; returns tokens, the steps' logits and times."""
+    import torch
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 2)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev[0].record()
+    logits, cache = model.prefill(prompts, cache_len)
+    tok = torch.argmax(logits[:, -1:], dim=-1)
+    ev[1].record()
+    toks, lgs = [], [logits]
+    for i in range(steps):
+        toks.append(tok)
+        logits, cache = model.decode_step(tok, cache)
+        tok = torch.argmax(logits[:, -1:], dim=-1)
+        lgs.append(logits)
+        ev[i + 2].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = [ev[i + 1].elapsed_time(ev[i + 2]) for i in range(steps)]
+    return {"tokens": torch.cat(toks, dim=1), "logits": lgs,
+            "prefill_ms": ev[0].elapsed_time(ev[1]), "step_ms": step_ms,
+            "wall_s": wall}
+
+
+LM_PROFILED_STEPS = 4
+BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 on the tensor cores
+
+
+def lm_work(model, batch: int, prompt_len: int, steps: int) -> dict:
+    """Bytes and operations a prefill of ``prompt_len`` tokens and the mean
+    decode step after it need, from the config's shapes: every parameter
+    read once, the KV cache written once and read up to each step's
+    position; bf16 matmul operations (each token meets every matmul
+    parameter, the routed experts only in its top-k, the tied embedding
+    only at a logits position) and f32 attention operations (the scores
+    and the weighted sum, over the keys each query attends: causal, and
+    within the window). Returns the bound of each, in ms, and which side
+    sets it."""
+    from repro_torch.models.convert import _walk
+    cfg = model.cfg
+    pbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    per_tok = 0
+    for spec, lp in zip(cfg.layers, model["layers"]):
+        for path, name, p in _walk(lp):
+            if p.dim() < 2:
+                continue
+            n = p.numel()
+            if spec.ffn == "moe" and path in ("ffn.w1", "ffn.w2", "ffn.w3"):
+                n = n * cfg.topk // cfg.n_experts
+            per_tok += n
+    head_flops = []     # per attended key, per token: 2·H·(d_qk + d_v)
+    kv_bytes = 0        # cache bytes per position
+    elt = model["embed"].element_size()
+    for spec in cfg.layers:
+        if spec.mixer == "attn":
+            head_flops.append((2 * cfg.n_heads * 2 * cfg.hd, spec.window))
+            kv_bytes += 2 * cfg.n_kv_heads * cfg.hd * elt
+        elif spec.mixer == "mla":
+            # the expanded heads of the prefill (the absorbed decode's
+            # scores and sum run over kv_lora, wider; its steps are
+            # bound by bytes either way)
+            head_flops.append((2 * cfg.n_heads * (
+                cfg.qk_nope_dim + cfg.qk_rope_dim + cfg.v_head_dim), None))
+            kv_bytes += (cfg.kv_lora + cfg.qk_rope_dim) * elt
+
+    def keys(t, window):            # keys the query at position t attends
+        return t + 1 if window is None else min(t + 1, window)
+
+    s = prompt_len
+    att_pre = sum(f * sum(keys(t, w) for t in range(s))
+                  for f, w in head_flops) * batch
+    mm_pre = 2 * batch * (s * per_tok + cfg.vocab * cfg.d_model)
+    by_pre = pbytes + batch * s * kv_bytes
+    pos = range(s, s + steps)
+    att_dec = sum(f * sum(keys(p, w) for p in pos)
+                  for f, w in head_flops) * batch / steps
+    mm_dec = 2 * batch * (per_tok + cfg.vocab * cfg.d_model)
+    by_dec = pbytes + batch * kv_bytes * sum(p + 1 for p in pos) / steps
+
+    def bound(by, mm, att):
+        t_by = by / HBM_BYTES_PER_S * 1e3
+        t_op = (mm / BF16_FLOPS_PER_S + att / F32_FLOPS_PER_S) * 1e3
+        return {"bytes": by, "bf16_flops": mm, "f32_flops": att,
+                "bound_ms": max(t_by, t_op),
+                "bound_by": "bytes" if t_by >= t_op else "operations",
+                "bytes_ms": t_by, "operations_ms": t_op}
+    return {"prefill": bound(by_pre, mm_pre, att_pre),
+            "decode_step": bound(by_dec, mm_dec, att_dec)}
+
+
+def profile_decode(model, prompts, cache_len: int) -> dict | None:
+    """The card's busy share over ``LM_PROFILED_STEPS`` greedy decode steps
+    after a prefill (``torch.profiler``, as phase 11 reads it), with the
+    device operations per step."""
+    import torch
+    logits, cache = model.prefill(prompts, cache_len)
+    state = {"tok": torch.argmax(logits[:, -1:], dim=-1), "cache": cache}
+
+    def step(k):
+        lg, state["cache"] = model.decode_step(state["tok"], state["cache"])
+        state["tok"] = torch.argmax(lg[:, -1:], dim=-1)
+
+    step(0)                                     # warm
+    sync_all()
+    tmp = tempfile.mkdtemp(prefix="lm-profile-")
+    try:
+        events, why = profiled_events(step, 1, LM_PROFILED_STEPS, tmp,
+                                      unit="decode step")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if events is None:
+        print(f"  decode profile: not measured ({why})", flush=True)
+        return None
+    # busy share only: the idle-by-scope walk of phase 11 is quadratic in
+    # the thousands of small launches a decode step makes
+    t = device_busy(events, HOST_SCOPES)
+    for k in ("window", "window_end", "busy"):
+        del t[k]
+    t["device_ops_per_step"] = t["device_ops"] / LM_PROFILED_STEPS
+    print(f"  decode profile ({LM_PROFILED_STEPS} steps): card busy "
+          f"{t['busy_share']:.1%} of {t['window_ms']:.2f} ms, "
+          f"{t['device_ops_per_step']:.0f} device operations per step; "
+          f"longest: " + ", ".join(f"{o['name'][:48]} {o['ms']:.2f} ms"
+                                   for o in t["top_ops"][:3]), flush=True)
+    return t
+
+
+def lm_full_run(arch: str, batch: int, prompt_len: int, steps: int, *,
+                first_token_gate: bool) -> dict:
+    """(c)/(d): one full-width bf16 config, seeded on the card, served
+    twice through the timed loop and once through ``generate``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.lm_serve import generate
+    from repro_torch.models.transformer import Model
+    cfg = get_config(arch, "full")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=LM_DEVICE,
+                  generator=torch.Generator(LM_DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    prompts = torch.randint(
+        0, cfg.vocab, (batch, prompt_len), device=LM_DEVICE,
+        generator=torch.Generator(LM_DEVICE).manual_seed(1))
+    cache_len = prompt_len + steps
+    runs = [timed_greedy(model, prompts, steps, cache_len) for _ in range(2)]
+    gen = generate(model, prompts, steps=steps, cache_len=cache_len)
+    peak = torch.cuda.max_memory_allocated()
+    toks = runs[0]["tokens"]
+    for r in runs[1:]:
+        if not torch.equal(r["tokens"], toks):
+            fail(f"LM {arch}: two greedy runs gave different tokens")
+    if not torch.equal(gen, toks):
+        fail(f"LM {arch}: generate's tokens differ from the timed loop's")
+    if not bool(((toks >= 0) & (toks < cfg.vocab)).all()):
+        fail(f"LM {arch}: a token out of range")
+    if not all(bool(torch.isfinite(lg).all()) for r in runs
+               for lg in r["logits"]):
+        fail(f"LM {arch}: non-finite logits")
+    out = {"params": n_params, "init_s": init_s, "batch": batch,
+           "prompt_len": prompt_len, "steps": steps}
+    if first_token_gate:
+        with torch.no_grad():
+            last = model(prompts)[:, -1]
+        top2 = torch.topk(last, 2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        rounding = float(last.abs().max()) * 2.0 ** -8
+        sure = margin > rounding
+        agree = torch.argmax(last, dim=-1) == toks[:, 0]
+        if not bool(agree[sure].all()):
+            fail(f"LM {arch}: first token is not the forward's argmax on a "
+                 f"row whose top-2 margin exceeds {rounding:.3e}")
+        out["first_token_rows_checked"] = int(sure.sum())
+        out["first_token_agree"] = int(agree.sum())
+    out["decode_profile"] = profile_decode(model, prompts, cache_len)
+    out["work"] = work = lm_work(model, batch, prompt_len, steps)
+    for k, w in work.items():
+        print(f"  {k} bound {w['bound_ms']:.3f} ms, by {w['bound_by']} "
+              f"({w['bytes'] / 1e9:.2f} GB: {w['bytes_ms']:.3f} ms; "
+              f"{w['bf16_flops'] / 1e12:.3f} TFLOP bf16 + "
+              f"{w['f32_flops'] / 1e12:.3f} TFLOP f32: "
+              f"{w['operations_ms']:.3f} ms)", flush=True)
+    timings = []
+    for r in runs:
+        dec = np.asarray(r["step_ms"])
+        timings.append({
+            "prefill_ms": r["prefill_ms"],
+            "decode_ms_median": float(np.median(dec)),
+            "decode_ms_p90": float(np.percentile(dec, 90)),
+            "decode_tokens_per_s": batch * steps / (dec.sum() / 1e3),
+            "tokens_per_s": batch * steps / r["wall_s"],
+            "wall_s": r["wall_s"]})
+    for i, tm in enumerate(timings):
+        print(f"  run {i + 1}: prefill {tm['prefill_ms']:.2f} ms | decode "
+              f"median {tm['decode_ms_median']:.3f} ms/token, p90 "
+              f"{tm['decode_ms_p90']:.3f} | {tm['decode_tokens_per_s']:.1f} "
+              f"tokens/s decoding, {tm['tokens_per_s']:.1f} generated "
+              f"tokens/s with the prefill", flush=True)
+    print(f"  {n_params} parameters, init {init_s:.2f} s, peak allocation "
+          f"{peak / 2**30:.2f} GiB, tokens of row 0: "
+          f"{toks[0, :8].tolist()}", flush=True)
+    out.update(runs=timings, peak_alloc_bytes=peak,
+               tokens_row0=toks[0].tolist())
+    del model, runs, gen
+    return out
+
+
+def lm_serve_phase() -> dict:
+    """Phase 13: the LM substrate on the card."""
+    import dataclasses
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Model
+    t_phase = time.perf_counter()
+    # the LM path is held to float32 products (no TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"smoke": lm_smoke_archs()}
+
+    cfg = dataclasses.replace(get_config("gemma3_1b", "full"),
+                              dtype="float32")
+    model = Model(cfg, device=LM_DEVICE,
+                  generator=torch.Generator(LM_DEVICE).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (2, 1024), device=LM_DEVICE,
+                         generator=torch.Generator(LM_DEVICE).manual_seed(1))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        full = model(toks)
+        rel = prefill_decode_rel(model, toks, full, 8)
+    torch.cuda.synchronize()
+    print(f"LM (b) gemma3-1b full width f32, B 2 S 1024: prefill(1016) + 8 "
+          f"decode steps vs forward rel {rel:.3e} (bound {LM_PD_TOL}; "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    if not rel < LM_PD_TOL:
+        fail(f"LM gemma3-1b f32: prefill/decode differs from forward by "
+             f"{rel:.3e}")
+    out["gemma3_1b_f32"] = {"prefill_decode_rel": rel}
+    del model, full
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("LM (c) gemma3-1b full width bf16, B 4, prompts 1024, 64 greedy "
+          "tokens:", flush=True)
+    out["gemma3_1b"] = lm_full_run("gemma3_1b", 4, 1024, 64,
+                                   first_token_gate=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("LM (d) deepseek-v2-lite full width bf16, B 2, prompts 256, 8 "
+          "greedy tokens:", flush=True)
+    out["deepseek_v2_lite"] = lm_full_run("deepseek_v2_lite", 2, 256, 8,
+                                          first_token_gate=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32):
+        fail("TF32 was turned on during the LM phase")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"LM serve phase: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=3e-2,
@@ -2560,6 +2949,9 @@ def run_phases(args, api, kind: str, smi: str, tmp: str) -> None:
                         args.cards)
     del kept, store
 
+    phase("LM serve")
+    lm = lm_serve_phase()
+
     phase("summary")
     kernels = []
     for name in KERNELS:
@@ -2617,7 +3009,7 @@ def run_phases(args, api, kind: str, smi: str, tmp: str) -> None:
               "per_mode": recs, "multi_device": md, "rebalance": rb,
               "store": st, "ref_order": ref_rec, "presets": presets,
               "streaming": stream, "operations": ops, "serve": serve,
-              "kernels": kernels}
+              "lm_serve": lm, "kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

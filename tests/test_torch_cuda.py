@@ -845,3 +845,120 @@ def test_audit_on_the_card_names_the_eigh_sync(cuda):
         f"mode={d} update" for d in range(3)], findings
     assert all("_pinv_psd" in f.message and "core/als.py" in f.message
                for f in findings), findings
+
+
+# ---------------------------------------------------------------------------
+# The LM substrate (repro_torch.models) on the card
+# ---------------------------------------------------------------------------
+
+def _lm_pair(arch, cuda):
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Model
+    cfg = get_config(arch, "smoke")
+    cpu = Model(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
+    return cfg, cpu, copy.deepcopy(cpu).to(cuda)
+
+
+def _lm_extra(cfg, device):
+    rng = np.random.default_rng(0)
+    if cfg.encoder is not None:
+        a = {"frames": rng.normal(size=(2, 12, cfg.d_model))}
+    elif any(s.mixer == "cross_attn" for s in cfg.pattern):
+        a = {"images": rng.normal(size=(2, 10, cfg.d_model))}
+    else:
+        return None
+    return {k: torch.from_numpy(v.astype(np.float32)).to(device)
+            for k, v in a.items()}
+
+
+def _lm_rel(got, ref):
+    got, ref = got.double().cpu(), ref.double().cpu()
+    return float((got - ref).abs().max() / max(1.0, float(ref.abs().max())))
+
+
+ARCHS = ["gemma2_9b", "nemotron4_340b", "granite_8b", "gemma3_1b",
+         "jamba15_large", "rwkv6_7b", "whisper_small", "deepseek_v2_lite",
+         "phi35_moe", "llama32_vision_90b"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lm_smoke_arch_on_card_matches_cpu(cuda, arch):
+    """Forward, prefill and three decode steps on the card within 1e-4
+    (relative to max(1, max|logit|), f32) of the port on the CPU."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, cpu, gpu = _lm_pair(arch, cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 16)))
+    ex_c, ex_g = _lm_extra(cfg, "cpu"), _lm_extra(cfg, cuda)
+    with torch.no_grad():
+        assert _lm_rel(gpu(toks.to(cuda), extra=ex_g),
+                       cpu(toks, extra=ex_c)) < 1e-4
+    lc, cc = cpu.prefill(toks[:, :13], 16, extra=ex_c)
+    lg, cg = gpu.prefill(toks[:, :13].to(cuda), 16, extra=ex_g)
+    assert _lm_rel(lg, lc) < 1e-4
+    for i in range(13, 16):
+        lc, cc = cpu.decode_step(toks[:, i:i + 1], cc)
+        lg, cg = gpu.decode_step(toks[:, i:i + 1].to(cuda), cg)
+        assert _lm_rel(lg, lc) < 1e-4
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lm_greedy_generate_on_card_equals_cpu(cuda, arch):
+    """Greedy tokens on the card are the CPU's wherever the CPU's top-2
+    margin exceeds 1e-3 at every step so far; two card runs are equal."""
+    from repro_torch.models.lm_serve import generate
+    cfg, cpu, gpu = _lm_pair(arch, cuda)
+    prompt = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 8)))
+    ex_c, ex_g = _lm_extra(cfg, "cpu"), _lm_extra(cfg, cuda)
+    want = generate(cpu, prompt, steps=6, cache_len=14, extra=ex_c)
+    got = generate(gpu, prompt.to(cuda), steps=6, cache_len=14,
+                   extra=ex_g).cpu()
+    again = generate(gpu, prompt.to(cuda), steps=6, cache_len=14,
+                     extra=ex_g).cpu()
+    assert torch.equal(got, again)
+    lg, cache = cpu.prefill(prompt, 14, extra=ex_c)
+    for k in range(6):
+        top2 = torch.topk(lg[:, -1], 2, dim=-1).values
+        if float((top2[:, 0] - top2[:, 1]).min()) <= 1e-3:
+            break
+        assert torch.equal(got[:, k], want[:, k]), k
+        lg, cache = cpu.decode_step(want[:, k:k + 1], cache)
+
+
+@pytest.mark.parametrize("arch", ["gemma3_1b", "deepseek_v2_lite",
+                                  "jamba15_large", "rwkv6_7b",
+                                  "whisper_small"])
+def test_lm_decode_step_makes_no_host_sync(cuda, arch):
+    """A decode step keeps its position on the host and its MoE routing on
+    the card: no operation of it synchronises with the host."""
+    cfg, _, gpu = _lm_pair(arch, cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 9))).to(cuda)
+    _, cache = gpu.prefill(toks[:, :8], 12, extra=_lm_extra(cfg, cuda))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lg, cache = gpu.decode_step(toks[:, 8:9], cache)
+        tok = torch.argmax(lg[:, -1:], dim=-1)
+        gpu.decode_step(tok, cache)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def test_lm_bf16_logits_are_f32_products(cuda):
+    """``logits`` takes bf16 operands to an f32 product on the card (no bf16
+    rounding of the result), equal to the widened product on the CPU up to
+    the summation order."""
+    from repro_torch.models.transformer import _logits_f32
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 5, 256, generator=g).to(torch.bfloat16)
+    e = torch.randn(1000, 256, generator=g).to(torch.bfloat16)
+    want = _logits_f32(x, e)
+    got = _logits_f32(x.to(cuda), e.to(cuda))
+    assert got.dtype == torch.float32
+    assert _lm_rel(got, want) < 1e-5
+    # a bf16 result would sit on the bf16 grid; the f32 product does not
+    assert float((got - got.to(torch.bfloat16).float()).abs().max()) > 1e-3

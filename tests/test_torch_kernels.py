@@ -374,15 +374,25 @@ def test_tile_runs(b2t, expect):
 def test_isolation_from_jax_and_the_reference():
     """The port and chip_smoke.py import neither jax nor anything of the
     reference package: every module of the port, the serving and analysis
-    packages among them, and the smoke's own imports."""
+    packages, the LM substrate, its serving shim (whose deprecation
+    warning is expected) and launcher, and the ten LM configs among them,
+    and the smoke's own imports."""
     code = (
-        "import sys, pkgutil, importlib, repro_torch\n"
+        "import sys, pkgutil, importlib, warnings, repro_torch\n"
         "import repro_torch.serve, repro_torch.analysis\n"
+        "warnings.simplefilter('ignore', DeprecationWarning)\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):"
         "\n    importlib.import_module(m.name)\n"
         "assert {'repro_torch.serve.service', 'repro_torch.serve.__main__',"
         " 'repro_torch.analysis.hlo_audit',"
-        " 'repro_torch.analysis.__main__'} <= set(sys.modules)\n"
+        " 'repro_torch.analysis.__main__',"
+        " 'repro_torch.models.transformer', 'repro_torch.models.lm_serve',"
+        " 'repro_torch.serving.serve', 'repro_torch.launch.serve_lm',"
+        " 'repro_torch.configs.gemma3_1b',"
+        " 'repro_torch.configs.deepseek_v2_lite'} <= set(sys.modules)\n"
+        "from repro_torch.configs import ARCH_IDS\n"
+        "assert all(f'repro_torch.configs.{a}' in sys.modules"
+        " for a in ARCH_IDS)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
