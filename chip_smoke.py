@@ -203,7 +203,33 @@ Phases, each of which exits non-zero on failure:
    parameters, (c)'s model freed first), B 2, prompts of 256, 8 greedy
    tokens, the same runs and gates but the first-token one (capacity 1.25
    drops other copies at 512 tokens than at 2). TF32 is off throughout.
-14. Summary: one JSON line ``{"kernels": [...]}`` (``ms``, ``plain_ms`` and
+14. LM train: ``repro_torch.training`` on the card, which reaches no EC
+   kernel and launches none; TF32 off. (a) Each of the ten smoke configs,
+   seeded on the CPU and copied to the card, B 2, S 16 (the enc-dec and
+   cross-attention configs with their ``frames`` / ``images``): one
+   ``make_train_step`` step on the card against the same step on the CPU,
+   the loss, ``grad_norm`` and every updated parameter within 1e-4
+   relative to max(1, |x|) (rwkv6's grad_norm and parameters within 5e-4:
+   its smoke gradients are ill-conditioned, ~4e-4 between the reference's
+   own f32 and f64). (b) gemma3-1b at its full width in f32, B 2, S 1,024:
+   remat ``full`` and ``dots`` give ``none``'s loss and gradients (bitwise,
+   or within 1e-5, printed), and ``microbatches=2`` gives ``1``'s updated
+   parameters within 1e-5. (c) gemma3-1b at its full width in bf16, 2
+   sequences of 4,096 tokens as 2 microbatches, remat ``none`` then
+   ``full``: 10 AdamW steps (lr 3e-4, warm-up 2) on ``SyntheticLM`` (seed
+   0), every loss finite, the last below the first, ``grad_norm`` finite
+   and positive; prints step ms (median, p90 of steps 2-10, CUDA events),
+   tokens/s, the peak allocation and the busy share over 3 more steps (the
+   union of kernel and copy intervals from ``torch.profiler``'s CUDA
+   activity alone, over the CUDA-event time of the 3 steps), beside the
+   step's bound (``lm_train_work``: 6·N·T bf16 operations and
+   the f32 attention against an optimizer step's bytes). If ``none`` runs
+   out of memory it says so and ``full`` runs alone. (d) ``python -m
+   repro_torch.launch.train --arch gemma3_1b --smoke --steps 6 --ckpt DIR
+   --ckpt-every 3`` on the card; step 6's checkpoint removed, the same
+   command resumes at 3, and its step-6 parameters and AdamW state equal
+   the uninterrupted run's (bitwise, or within 1e-6, printed).
+15. Summary: one JSON line ``{"kernels": [...]}`` (``ms``, ``plain_ms`` and
    ``bound_ms`` summed over the three modes, i.e. one sweep's launches;
    ``launches`` from the main-path run, ``multi_device_launches`` from the
    multi-device path's, ``rebalance_launches`` from the rebalance phase's
@@ -2443,9 +2469,9 @@ LM_DEVICE = "cuda"
 
 
 def lm_rel(got, ref) -> float:
-    """max|got - ref| / max(1, max|ref|), in float64 on the host."""
-    got = got.detach().double().cpu()
-    ref = ref.detach().double().cpu()
+    """max|got - ref| / max(1, max|ref|), in float64 on ``ref``'s device."""
+    got = got.detach().to(ref.device).double()
+    ref = ref.detach().double()
     return float((got - ref).abs().max() / max(1.0, float(ref.abs().max())))
 
 
@@ -2554,19 +2580,15 @@ LM_PROFILED_STEPS = 4
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16 on the tensor cores
 
 
-def lm_work(model, batch: int, prompt_len: int, steps: int) -> dict:
-    """Bytes and operations a prefill of ``prompt_len`` tokens and the mean
-    decode step after it need, from the config's shapes: every parameter
-    read once, the KV cache written once and read up to each step's
-    position; bf16 matmul operations (each token meets every matmul
-    parameter, the routed experts only in its top-k, the tied embedding
-    only at a logits position) and f32 attention operations (the scores
-    and the weighted sum, over the keys each query attends: causal, and
-    within the window). Returns the bound of each, in ms, and which side
-    sets it."""
+def lm_shapes(model) -> dict:
+    """What a token costs in ``model``, from the config's shapes: the
+    parameter bytes; the layers' matmul parameters each token meets (the
+    routed experts only in its top-k) and the tied logits product's; per
+    attention layer, the f32 operations per attended key
+    (the scores and the weighted sum) and its window; the KV cache bytes
+    per position."""
     from repro_torch.models.convert import _walk
     cfg = model.cfg
-    pbytes = sum(p.numel() * p.element_size() for p in model.parameters())
     per_tok = 0
     for spec, lp in zip(cfg.layers, model["layers"]):
         for path, name, p in _walk(lp):
@@ -2590,30 +2612,66 @@ def lm_work(model, batch: int, prompt_len: int, steps: int) -> dict:
             head_flops.append((2 * cfg.n_heads * (
                 cfg.qk_nope_dim + cfg.qk_rope_dim + cfg.v_head_dim), None))
             kv_bytes += (cfg.kv_lora + cfg.qk_rope_dim) * elt
+    return {"param_bytes": sum(p.numel() * p.element_size()
+                               for p in model.parameters()),
+            "layer_params": per_tok, "logits_params": cfg.vocab * cfg.d_model,
+            "head_flops": head_flops, "kv_bytes": kv_bytes}
 
-    def keys(t, window):            # keys the query at position t attends
-        return t + 1 if window is None else min(t + 1, window)
 
+def attended_keys(t: int, window) -> int:
+    """Keys the query at position ``t`` attends: causal, within the
+    window."""
+    return t + 1 if window is None else min(t + 1, window)
+
+
+def lm_bound(by: float, mm: float, att: float) -> dict:
+    t_by = by / HBM_BYTES_PER_S * 1e3
+    t_op = (mm / BF16_FLOPS_PER_S + att / F32_FLOPS_PER_S) * 1e3
+    return {"bytes": by, "bf16_flops": mm, "f32_flops": att,
+            "bound_ms": max(t_by, t_op),
+            "bound_by": "bytes" if t_by >= t_op else "operations",
+            "bytes_ms": t_by, "operations_ms": t_op}
+
+
+def lm_work(model, batch: int, prompt_len: int, steps: int) -> dict:
+    """Bytes and operations a prefill of ``prompt_len`` tokens and the mean
+    decode step after it need (:func:`lm_shapes`): every parameter read
+    once, the KV cache written once and read up to each step's position;
+    bf16 matmul operations and f32 attention operations over the keys each
+    query attends. Returns the bound of each, in ms, and which side sets
+    it."""
+    sh = lm_shapes(model)
+    per_tok, head_flops = sh["layer_params"], sh["head_flops"]
     s = prompt_len
-    att_pre = sum(f * sum(keys(t, w) for t in range(s))
+    att_pre = sum(f * sum(attended_keys(t, w) for t in range(s))
                   for f, w in head_flops) * batch
-    mm_pre = 2 * batch * (s * per_tok + cfg.vocab * cfg.d_model)
-    by_pre = pbytes + batch * s * kv_bytes
+    # the prefill's logits only at the last position
+    mm_pre = 2 * batch * (s * per_tok + sh["logits_params"])
+    by_pre = sh["param_bytes"] + batch * s * sh["kv_bytes"]
     pos = range(s, s + steps)
-    att_dec = sum(f * sum(keys(p, w) for p in pos)
+    att_dec = sum(f * sum(attended_keys(p, w) for p in pos)
                   for f, w in head_flops) * batch / steps
-    mm_dec = 2 * batch * (per_tok + cfg.vocab * cfg.d_model)
-    by_dec = pbytes + batch * kv_bytes * sum(p + 1 for p in pos) / steps
+    mm_dec = 2 * batch * (per_tok + sh["logits_params"])
+    by_dec = sh["param_bytes"] + batch * sh["kv_bytes"] * sum(
+        p + 1 for p in pos) / steps
+    return {"prefill": lm_bound(by_pre, mm_pre, att_pre),
+            "decode_step": lm_bound(by_dec, mm_dec, att_dec)}
 
-    def bound(by, mm, att):
-        t_by = by / HBM_BYTES_PER_S * 1e3
-        t_op = (mm / BF16_FLOPS_PER_S + att / F32_FLOPS_PER_S) * 1e3
-        return {"bytes": by, "bf16_flops": mm, "f32_flops": att,
-                "bound_ms": max(t_by, t_op),
-                "bound_by": "bytes" if t_by >= t_op else "operations",
-                "bytes_ms": t_by, "operations_ms": t_op}
-    return {"prefill": bound(by_pre, mm_pre, att_pre),
-            "decode_step": bound(by_dec, mm_dec, att_dec)}
+
+def lm_train_work(model, batch: int, seq: int) -> dict:
+    """The bound of one AdamW train step on ``batch`` sequences of ``seq``
+    tokens: 6·N·T bf16 matmul operations (forward 2, backward 4 per
+    parameter a token meets) plus three times the forward's f32 attention
+    operations, against the bytes an optimizer step must move (each
+    parameter, ``mu`` and ``nu`` read once and written once). Remat's
+    recomputation is not counted: the bound is the function's."""
+    sh = lm_shapes(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    att = 3 * sum(f * sum(attended_keys(t, w) for t in range(seq))
+                  for f, w in sh["head_flops"]) * batch
+    mm = 6 * (sh["layer_params"] + sh["logits_params"]) * batch * seq
+    by = 2 * (sh["param_bytes"] + 2 * 4 * n_params)
+    return lm_bound(by, mm, att)
 
 
 def profile_decode(model, prompts, cache_len: int) -> dict | None:
@@ -2793,6 +2851,383 @@ def lm_serve_phase() -> dict:
     return out
 
 
+# -- phase 14: LM train -----------------------------------------------------
+
+LM_TRAIN_TOL = 1e-4      # card step against the CPU step, f32
+# rwkv6's r/k-path gradients are ill-conditioned at smoke size (8-wide heads
+# under a group norm with eps 1e-5: the reference's own f32 gradients differ
+# from its float64 ones by ~4e-4), so its grad_norm and first Adam update
+# (g/(|g|+eps) of near-zero gradients) are held to this bound
+LM_TRAIN_RWKV_TOL = 5e-4
+LM_REMAT_TOL = 1e-5      # remat against none when a step is not bitwise
+LM_MB_TOL = 1e-5         # 2 microbatches against 1, updated parameters
+LM_TRAIN_STEPS = 10
+LM_TRAIN_PROFILED = 3
+
+
+def lm_train_batch(cfg, batch: int, seq: int) -> dict:
+    """Seeded numpy tokens (seed 1), targets rolled by one, and the
+    family's ``frames`` / ``images`` (as ``lm_extra``)."""
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (batch, seq))
+    out = {"tokens": toks, "targets": np.roll(toks, -1, axis=1)}
+    ex = lm_extra(cfg, batch, "cpu")
+    if ex:
+        out.update({k: v.numpy() for k, v in ex.items()})
+    return out
+
+
+def lm_train_smoke_archs() -> dict:
+    """(a) every smoke arch: one train step on the card against the same
+    step on the CPU, from the same weights and batch."""
+    import copy
+
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models.transformer import Model
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training.train_step import make_train_step
+    ocfg = opt_mod.AdamWConfig(lr=1e-3, warmup=1, total_steps=10)
+    out = {}
+    t0 = time.perf_counter()
+    for arch in ARCH_IDS:
+        cfg = get_config(arch, "smoke")
+        cpu = Model(cfg, device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+        gpu = copy.deepcopy(cpu).to(LM_DEVICE)
+        batch = lm_train_batch(cfg, 2, 16)
+        res = {}
+        for where, m in (("cpu", cpu), ("card", gpu)):
+            step = make_train_step(m, ocfg)
+            _, res[where] = step(
+                opt_mod.adamw_init(dict(m.named_parameters())), batch)
+        loss = lm_rel(res["card"]["loss"], res["cpu"]["loss"])
+        gn = lm_rel(res["card"]["grad_norm"], res["cpu"]["grad_norm"])
+        par = max(lm_rel(a, b) for a, b in zip(gpu.parameters(),
+                                                cpu.parameters()))
+        tol = LM_TRAIN_RWKV_TOL if arch == "rwkv6_7b" else LM_TRAIN_TOL
+        print(f"LM train (a) {arch}: card vs CPU loss rel {loss:.3e}, "
+              f"grad_norm rel {gn:.3e}, updated parameters rel {par:.3e} "
+              f"(loss {float(res['cpu']['loss']):.4f})", flush=True)
+        if not (loss < LM_TRAIN_TOL and gn < tol and par < tol):
+            fail(f"LM train {arch}: the card's step differs from the CPU's "
+                 f"(loss {loss:.3e}, grad_norm {gn:.3e}, parameters "
+                 f"{par:.3e}; bounds {LM_TRAIN_TOL}, {tol})")
+        out[arch] = {"loss_rel": loss, "grad_norm_rel": gn,
+                     "params_rel": par}
+    print(f"LM train (a): {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def lm_loss_and_grads(model, batch):
+    import torch
+    from repro_torch.training.train_step import make_loss_fn
+    params = [p for p in model.parameters()]
+    loss = make_loss_fn(model)(batch)
+    return loss.detach(), torch.autograd.grad(loss, params)
+
+
+def lm_train_f32() -> dict:
+    """(b) gemma3-1b full width in f32, B 2, S 1,024: remat against none,
+    then 2 microbatches against 1."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Model
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training.train_step import make_train_step
+    cfg = dataclasses.replace(get_config("gemma3_1b", "full"),
+                              dtype="float32")
+    model = Model(cfg, device=LM_DEVICE,
+                  generator=torch.Generator(LM_DEVICE).manual_seed(0))
+    model.requires_grad_(True)
+    batch = {k: torch.from_numpy(v).to(LM_DEVICE)
+             for k, v in lm_train_batch(cfg, 2, 1024).items()}
+    out = {}
+    t0 = time.perf_counter()
+    loss0, g0 = lm_loss_and_grads(model, batch)
+    for remat in ("full", "dots"):
+        model.cfg = dataclasses.replace(cfg, remat=remat)
+        loss, g = lm_loss_and_grads(model, batch)
+        bitwise = bool(torch.equal(loss, loss0)) and all(
+            torch.equal(a, b) for a, b in zip(g, g0))
+        rel = max([lm_rel(loss, loss0)] + [lm_rel(a, b)
+                                           for a, b in zip(g, g0)])
+        print(f"LM train (b) gemma3-1b f32 B 2 S 1024: remat {remat} vs "
+              f"none: {'bitwise equal' if bitwise else 'not bitwise'} "
+              f"(loss and every gradient; max rel {rel:.3e})", flush=True)
+        if not (bitwise or rel < LM_REMAT_TOL):
+            fail(f"LM train: remat {remat} gives other gradients than none "
+                 f"(rel {rel:.3e}, bound {LM_REMAT_TOL})")
+        out[f"remat_{remat}"] = {"bitwise": bitwise, "max_rel": rel}
+        del g
+    model.cfg = cfg
+    del g0
+    init = [p.detach().clone() for p in model.parameters()]
+    ocfg = opt_mod.AdamWConfig(lr=3e-4, warmup=1, total_steps=10)
+    upd = {}
+    for mb in (1, 2):
+        with torch.no_grad():
+            for p, q in zip(model.parameters(), init):
+                p.copy_(q)
+        step = make_train_step(model, ocfg, microbatches=mb)
+        _, met = step(opt_mod.adamw_init(dict(model.named_parameters())),
+                      batch)
+        upd[mb] = ([p.detach().clone() for p in model.parameters()], met)
+    rel = max(lm_rel(a, b) for a, b in zip(upd[2][0], upd[1][0]))
+    loss_rel = lm_rel(upd[2][1]["loss"], upd[1][1]["loss"])
+    print(f"LM train (b) microbatches 2 vs 1: updated parameters rel "
+          f"{rel:.3e}, loss rel {loss_rel:.3e} (bound {LM_MB_TOL}; "
+          f"{time.perf_counter() - t0:.1f} s)", flush=True)
+    if not rel < LM_MB_TOL:
+        fail(f"LM train: 2 microbatches differ from 1 by {rel:.3e}")
+    out["microbatch"] = {"params_rel": rel, "loss_rel": loss_rel}
+    del model, init, upd
+    return out
+
+
+def busy_share_device_only(step, count: int, tmp: str):
+    """The card's busy share of ``step(k)`` for ``k`` in ``1 .. count``: the
+    union of the kernel and copy intervals that ``torch.profiler`` records
+    with its CUDA activity alone, over the device time between two CUDA
+    events recorded around the steps. Host operations are not recorded:
+    recording them slows the host that issues a train step's ~30 k
+    launches (and their trace takes minutes to export). Returns ``(dict,
+    None)``, or ``(None, why)`` when the profiler shows no device time or
+    fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    sync_all()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ev[0].record()
+            for k in range(1, count + 1):
+                step(k)
+            ev[1].record()
+            sync_all()
+    except RuntimeError as e:
+        return None, f"torch.profiler failed: {e}"
+    if _device_time_total(prof) <= 0:
+        return None, "key_averages() shows no device time"
+    path = os.path.join(tmp, "profile.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        dev = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]), e["name"])
+               for e in json.load(f)["traceEvents"]
+               if e.get("ph") == "X" and "dur" in e
+               and is_device_work(e.get("cat"))]
+    os.remove(path)
+    busy_ms = sum(b - a for a, b in _merged([(a, b) for a, b, _ in dev])) / 1e3
+    window_ms = ev[0].elapsed_time(ev[1])
+    ops = {}
+    for a, b, n in dev:
+        o = ops.setdefault(n, [0.0, 0])
+        o[0] += (b - a) / 1e3
+        o[1] += 1
+    return {"window_ms": window_ms, "busy_ms": busy_ms,
+            "busy_share": busy_ms / window_ms, "device_ops": len(dev),
+            "top_ops": [{"name": n, "ms": ms, "count": c} for n, (ms, c) in
+                        sorted(ops.items(), key=lambda kv: -kv[1][0])[:TOP]]
+            }, None
+
+
+def lm_train_run(remat: str) -> dict:
+    """(c) gemma3-1b full width in bf16, 2 sequences of 4,096 tokens as 2
+    microbatches, ``LM_TRAIN_STEPS`` AdamW steps on ``SyntheticLM`` (seed
+    0), CUDA events around each step; then the busy share over
+    ``LM_TRAIN_PROFILED`` more steps."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Model
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.training.train_step import make_train_step
+    cfg = dataclasses.replace(get_config("gemma3_1b", "full"), remat=remat)
+    batch, seq = 2, 4096
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg, device=LM_DEVICE,
+                  generator=torch.Generator(LM_DEVICE).manual_seed(0))
+    step = make_train_step(model, opt_mod.AdamWConfig(
+        lr=3e-4, warmup=2, total_steps=LM_TRAIN_STEPS), microbatches=2)
+    opt = opt_mod.adamw_init(dict(model.named_parameters()))
+    data = SyntheticLM(vocab=cfg.vocab, batch=batch, seq=seq, seed=0)
+    batches = [{k: torch.from_numpy(v).to(LM_DEVICE)
+                for k, v in data.batch_at(i).items()}
+               for i in range(LM_TRAIN_STEPS + LM_TRAIN_PROFILED)]
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(LM_TRAIN_STEPS + 1)]
+    mets = []
+    sync_all()
+    t0 = time.perf_counter()
+    ev[0].record()
+    for i in range(LM_TRAIN_STEPS):
+        opt, met = step(opt, batches[i])
+        mets.append(met)
+        ev[i + 1].record()
+    sync_all()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(LM_TRAIN_STEPS)]
+    losses = [float(m["loss"]) for m in mets]
+    gnorms = [float(m["grad_norm"]) for m in mets]
+    if not all(np.isfinite(losses)):
+        fail(f"LM train remat {remat}: a loss is not finite: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"LM train remat {remat}: the last loss {losses[-1]:.4f} is not "
+             f"below the first {losses[0]:.4f}")
+    if not all(np.isfinite(g) and g > 0 for g in gnorms):
+        fail(f"LM train remat {remat}: grad_norm not finite and positive: "
+             f"{gnorms}")
+    steady = np.asarray(step_ms[1:])
+    tokens = batch * seq
+    out = {"remat": remat, "losses": losses, "grad_norms": gnorms,
+           "step_ms": step_ms, "step_ms_median": float(np.median(steady)),
+           "step_ms_p90": float(np.percentile(steady, 90)),
+           "tokens_per_s": tokens / (float(np.median(steady)) / 1e3),
+           "wall_s": wall, "peak_alloc_bytes": peak}
+
+    def prof_step(k):
+        nonlocal opt
+        opt, _ = step(opt, batches[LM_TRAIN_STEPS + k - 1])
+
+    tmp = tempfile.mkdtemp(prefix="lm-train-profile-")
+    t0 = time.perf_counter()
+    try:
+        t, why = busy_share_device_only(prof_step, LM_TRAIN_PROFILED, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["profile_s"] = time.perf_counter() - t0
+    if t is None:
+        print(f"  train profile: not measured ({why})", flush=True)
+    else:
+        t["device_ops_per_step"] = t["device_ops"] / LM_TRAIN_PROFILED
+    out["profile"] = t
+    out["work"] = work = lm_train_work(model, batch, seq)
+    bus = (f"card busy {out['profile']['busy_share']:.1%} of "
+           f"{out['profile']['window_ms']:.1f} ms over {LM_TRAIN_PROFILED} "
+           f"steps, {out['profile']['device_ops_per_step']:.0f} device "
+           f"operations per step; longest: " + ", ".join(
+               f"{o['name'][:40]} {o['ms']:.1f} ms"
+               for o in out['profile']['top_ops'][:3])
+           if out["profile"] else "busy share not measured")
+    print(f"  remat {remat}: step median {out['step_ms_median']:.1f} ms, p90 "
+          f"{out['step_ms_p90']:.1f} ms (steps 2-{LM_TRAIN_STEPS}), "
+          f"{out['tokens_per_s']:.0f} tokens/s; bound {work['bound_ms']:.1f} "
+          f"ms by {work['bound_by']} ({work['bf16_flops'] / 1e12:.1f} TFLOP "
+          f"bf16 + {work['f32_flops'] / 1e12:.2f} TFLOP f32: "
+          f"{work['operations_ms']:.1f} ms; {work['bytes'] / 1e9:.1f} GB: "
+          f"{work['bytes_ms']:.1f} ms); peak allocation "
+          f"{peak / 2**30:.2f} GiB; {bus} (timed steps {wall:.1f} s, "
+          f"profile {out['profile_s']:.1f} s)", flush=True)
+    print(f"  remat {remat}: losses " + " ".join(f"{x:.4f}" for x in losses)
+          + "; grad_norm " + " ".join(f"{x:.3f}" for x in gnorms),
+          flush=True)
+    del model, opt, step, batches, mets
+    return out
+
+
+def lm_train_bf16() -> dict:
+    """(c): remat none, then full; none may not fit, full must."""
+    import gc
+
+    import torch
+    out = {}
+    for remat in ("none", "full"):
+        print(f"LM train (c) gemma3-1b full width bf16, 2 x 4096 tokens as 2 "
+              f"microbatches, {LM_TRAIN_STEPS} AdamW steps, remat {remat}:",
+              flush=True)
+        try:
+            out[remat] = lm_train_run(remat)
+        except torch.cuda.OutOfMemoryError as e:
+            if remat != "none":
+                raise
+            print(f"  remat none does not fit in the card's memory at this "
+                  f"shape ({str(e).splitlines()[0][:160]}); remat full alone",
+                  flush=True)
+            out[remat] = {"out_of_memory": str(e).splitlines()[0]}
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_launcher(tmp: str) -> dict:
+    """(d) the launcher on the card: 6 steps with checkpoints every 3; the
+    step-6 checkpoint removed and the same command run again, which
+    resumes at 3; its final parameters against the uninterrupted run's."""
+    from repro_torch.training.checkpoint import CheckpointManager
+    ck = os.path.join(tmp, "train-ckpt")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "gemma3_1b", "--smoke", "--steps", "6", "--ckpt", ck,
+           "--ckpt-every", "3"]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.join(HERE, "src"), os.environ.get("PYTHONPATH", "")]))
+    outs = []
+    for run in range(2):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            fail(f"LM train launcher run {run + 1} exited "
+                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+        outs.append(proc.stdout)
+        print(f"LM train (d) launcher run {run + 1} "
+              f"({time.perf_counter() - t0:.1f} s): "
+              + " | ".join(proc.stdout.strip().splitlines()), flush=True)
+        mgr = CheckpointManager(ck)
+        if run == 0:
+            if mgr.steps() != [3, 6]:
+                fail(f"LM train launcher saved steps {mgr.steps()}, "
+                     f"expected [3, 6]")
+            whole, _ = mgr.restore_latest()
+            shutil.rmtree(mgr._step_dir(6))
+    if "resumed at step 3" not in outs[1]:
+        fail("LM train launcher: the second run did not resume at step 3")
+    resumed, step = CheckpointManager(ck).restore_latest()
+    if step != 6:
+        fail(f"LM train launcher: the resumed run ended at step {step}")
+    from repro_torch.models.convert import _to_tensor
+    from repro_torch.training.checkpoint import _tree_flatten
+    whole, resumed = _tree_flatten(whole), _tree_flatten(resumed)
+    if whole.keys() != resumed.keys():
+        fail("LM train launcher: the resumed checkpoint holds other arrays")
+    bitwise = all(np.array_equal(whole[k], resumed[k]) for k in whole)
+    rel = max(lm_rel(_to_tensor(resumed[k]), _to_tensor(whole[k]))
+              for k in whole)
+    print(f"LM train (d) resumed vs uninterrupted (parameters and AdamW "
+          f"state at step 6): {'bitwise equal' if bitwise else 'not bitwise'}"
+          f", max rel {rel:.3e}", flush=True)
+    if not (bitwise or rel < 1e-6):
+        fail(f"LM train launcher: the resumed run differs by {rel:.3e}")
+    return {"bitwise": bitwise, "max_rel": rel}
+
+
+def lm_train_phase(tmp: str) -> dict:
+    """Phase 14: LM training on the card."""
+    import gc
+
+    import torch
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"smoke": lm_train_smoke_archs()}
+    out["gemma3_1b_f32"] = lm_train_f32()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["gemma3_1b_bf16"] = lm_train_bf16()
+    out["launcher"] = lm_train_launcher(tmp)
+    if (torch.backends.cuda.matmul.allow_tf32
+            or torch.backends.cudnn.allow_tf32):
+        fail("TF32 was turned on during the LM train phase")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"LM train phase: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=3e-2,
@@ -2952,6 +3387,9 @@ def run_phases(args, api, kind: str, smi: str, tmp: str) -> None:
     phase("LM serve")
     lm = lm_serve_phase()
 
+    phase("LM train")
+    lm_train = lm_train_phase(tmp)
+
     phase("summary")
     kernels = []
     for name in KERNELS:
@@ -3009,7 +3447,7 @@ def run_phases(args, api, kind: str, smi: str, tmp: str) -> None:
               "per_mode": recs, "multi_device": md, "rebalance": rb,
               "store": st, "ref_order": ref_rec, "presets": presets,
               "streaming": stream, "operations": ops, "serve": serve,
-              "lm_serve": lm, "kernels": kernels}
+              "lm_serve": lm, "lm_train": lm_train, "kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -163,6 +163,7 @@ def main(argv=None):
           f"rebalance={cfg.schedule.rebalance} device={args.device}")
 
     t0 = clock.now()
+    hits0 = api.CACHE_STATS["hits"]   # process-wide: count this plan's own
     plan = api.plan(t, cfg, cache_dir=args.plan_cache, device=args.device,
                     analyze=args.analyze)
     t_plan = clock.now() - t0
@@ -188,7 +189,7 @@ def main(argv=None):
     res = solver.run(args.iters, verbose=True)
     t_exec = clock.now() - t1
 
-    hit = args.plan_cache is not None and api.CACHE_STATS["hits"] > 0
+    hit = args.plan_cache is not None and api.CACHE_STATS["hits"] > hits0
     print(f"plan {t_plan:.1f}s{' (cache hit)' if hit else ''} | "
           f"compile {t_compile:.1f}s | execute {t_exec:.1f}s")
     print(f"{res.sweeps} sweeps; final fit {res.fits[-1]:.5f}")

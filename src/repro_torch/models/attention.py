@@ -135,6 +135,7 @@ def attention_prefill(q, k, v, *, causal: bool = True,
         # block_skip: only lower-triangular (i >= j) blocks are computed
         first = j if causal and block_skip else 0
         per_block = b * h * c * max(c, hd + hdv)
+        parts = []
         for i0, i1 in _groups(nq - first, per_block):
             i0, i1 = i0 + first, i1 + first
             n = i1 - i0
@@ -151,10 +152,13 @@ def attention_prefill(q, k, v, *, causal: bool = True,
             m_new = torch.maximum(m_i, m2)
             alpha = torch.exp(m_i - m_new)
             beta = torch.exp(m2 - m_new)
-            acc[:, i0:i1] = a_i * alpha.transpose(2, 3)[..., None] \
-                + o * beta.transpose(2, 3)[..., None]
-            l[:, i0:i1] = l_i * alpha + l2 * beta
-            m[:, i0:i1] = m_new
+            parts.append((a_i * alpha.transpose(2, 3)[..., None]
+                          + o * beta.transpose(2, 3)[..., None],
+                          l_i * alpha + l2 * beta, m_new))
+        # the merged chunks replace chunks first..nq-1 out of place, so
+        # autograd keeps the accumulators each step read
+        acc, l, m = (torch.cat([old[:, :first], *new], dim=1)
+                     for old, new in zip((acc, l, m), zip(*parts)))
     outs = acc / torch.clamp_min(l, 1e-37).transpose(2, 3)[..., None]
     return outs.reshape(b, s, h, hdv).to(q.dtype)
 

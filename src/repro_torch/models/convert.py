@@ -1,12 +1,14 @@
-"""The reference's weights carried across: its parameter pytree in and out
-of a port :class:`~repro_torch.models.transformer.Model`.
+"""The reference's weights carried across: its parameter pytree, and its
+AdamW state, in and out of a port
+:class:`~repro_torch.models.transformer.Model`.
 
 The reference keeps one parameter tree per pattern position, stacked over
 cycles (``groups[pi]`` with leaves ``(cyc, ...)``), and the encoder's
 layers stacked over layers; the port keeps one tree per layer,
 ``layers[c * len(pattern) + pi]``. Both functions copy exactly: the only
 cast is to the parameter's own dtype (the config's, or float32 for the MoE
-router), which the reference's arrays already have. Arrays are numpy;
+router), which the reference's arrays already have; the moments ``mu`` and
+``nu`` are float32 trees of the parameters' layout. Arrays are numpy;
 bfloat16 arrays are ``ml_dtypes.bfloat16`` (what ``np.asarray`` of a JAX
 bf16 array gives), read through their 16-bit pattern.
 """
@@ -17,7 +19,8 @@ import torch
 
 from repro_torch.models.transformer import Model, Params
 
-__all__ = ["load_reference_params", "reference_params", "reference_cache"]
+__all__ = ["load_reference_params", "reference_params", "reference_cache",
+           "reference_opt_state", "load_reference_opt_state"]
 
 
 def _to_tensor(a) -> torch.Tensor:
@@ -71,25 +74,16 @@ def _sections(model: Model, tree: dict):
         yield model["encoder"]["final_norm"], tree["encoder"]["final_norm"], None
 
 
-@torch.no_grad()
-def load_reference_params(model: Model, tree: dict) -> Model:
-    """Install the reference's parameter pytree (numpy leaves) in ``model``;
-    returns ``model``. Raises on a missing or extra leaf or a shape
-    mismatch."""
+def _read_reference(model: Model, tree: dict, put) -> None:
+    """``put(param, array, path)`` for every parameter of ``model`` and its
+    array in the reference's pytree ``tree`` (a cycle's or layer's slice of
+    a stacked leaf). Raises on a missing or extra leaf."""
     top = [k for k in ("embed", "pos_emb") if k in model]
     want = set(top) | {"final_norm", "groups"} | (
         {"encoder"} if "encoder" in model else set())
     if set(tree) != want:
         raise ValueError(f"reference tree has {sorted(tree)}, the model "
                          f"{sorted(want)}")
-
-    def put(param, a, path):
-        t = _to_tensor(a)
-        if tuple(t.shape) != tuple(param.shape):
-            raise ValueError(f"{path}: reference shape {tuple(t.shape)}, "
-                             f"port {tuple(param.shape)}")
-        param.copy_(t.to(param.dtype))
-
     for k in top:
         put(model[k], tree[k], k)
     for params, sub, idx in _sections(model, tree):
@@ -100,6 +94,25 @@ def load_reference_params(model: Model, tree: dict) -> Model:
         for path, _, param in leaves:
             a = _get(sub, path)
             put(param, a if idx is None else np.asarray(a)[idx], path)
+
+
+def _checked(param, a, path) -> torch.Tensor:
+    t = _to_tensor(a)
+    if tuple(t.shape) != tuple(param.shape):
+        raise ValueError(f"{path}: reference shape {tuple(t.shape)}, "
+                         f"port {tuple(param.shape)}")
+    return t
+
+
+@torch.no_grad()
+def load_reference_params(model: Model, tree: dict) -> Model:
+    """Install the reference's parameter pytree (numpy leaves) in ``model``;
+    returns ``model``. Raises on a missing or extra leaf or a shape
+    mismatch."""
+    def put(param, a, path):
+        param.copy_(_checked(param, a, path).to(param.dtype))
+
+    _read_reference(model, tree, put)
     return model
 
 
@@ -114,33 +127,66 @@ def _nest(flat: dict) -> dict:
     return out
 
 
-def _stacked(trees: list) -> dict:
-    """Reference layout of per-layer trees: each leaf stacked on axis 0."""
-    flat = {p: np.stack([_to_numpy(t[p]) for t in trees])
-            for p in trees[0]}
-    return _nest(flat)
+def _reference_layout(model: Model, leaf) -> dict:
+    """The reference's pytree of ``leaf(param)`` (a numpy array) over the
+    model's parameters: per-layer trees stacked on axis 0."""
+    cfg = model.cfg
+    npat = len(cfg.pattern)
+
+    def flat(params):
+        return {p: leaf(t) for p, _, t in _walk(params)}
+
+    def stacked(trees):
+        return _nest({p: np.stack([t[p] for t in trees]) for p in trees[0]})
+
+    layers = [flat(lp) for lp in model["layers"]]
+    tree = {"embed": leaf(model["embed"]),
+            "final_norm": _nest(flat(model["final_norm"])),
+            "groups": [stacked(layers[pi::npat]) for pi in range(npat)]}
+    if "pos_emb" in model:
+        tree["pos_emb"] = leaf(model["pos_emb"])
+    if "encoder" in model:
+        enc = model["encoder"]
+        tree["encoder"] = {
+            "layers": stacked([flat(lp) for lp in enc["layers"]]),
+            "final_norm": _nest(flat(enc["final_norm"]))}
+    return tree
 
 
 def reference_params(model: Model) -> dict:
     """The inverse of :func:`load_reference_params`: the model's parameters
     as the reference's pytree of numpy arrays."""
-    cfg = model.cfg
-    npat = len(cfg.pattern)
-    flat = [{p: t for p, _, t in _walk(lp)} for lp in model["layers"]]
-    tree = {"embed": _to_numpy(model["embed"]),
-            "final_norm": _nest({p: _to_numpy(t) for p, _, t in
-                                 _walk(model["final_norm"])}),
-            "groups": [_stacked(flat[pi::npat]) for pi in range(npat)]}
-    if "pos_emb" in model:
-        tree["pos_emb"] = _to_numpy(model["pos_emb"])
-    if "encoder" in model:
-        enc = model["encoder"]
-        tree["encoder"] = {
-            "layers": _stacked([{p: t for p, _, t in _walk(lp)}
-                                for lp in enc["layers"]]),
-            "final_norm": _nest({p: _to_numpy(t) for p, _, t in
-                                 _walk(enc["final_norm"])})}
-    return tree
+    return _reference_layout(model, _to_numpy)
+
+
+def reference_opt_state(model: Model, opt: dict) -> dict:
+    """The port's AdamW state (``training.optimizer.adamw_init`` over
+    ``dict(model.named_parameters())``) as the reference's: ``mu`` and
+    ``nu`` in the parameters' ``groups`` layout, ``step`` an int32 scalar,
+    all numpy."""
+    names = {id(p): n for n, p in model.named_parameters()}
+    return {k: _reference_layout(
+        model, lambda p, k=k: _to_numpy(opt[k][names[id(p)]]))
+        for k in ("mu", "nu")} | {"step": _to_numpy(opt["step"])}
+
+
+def load_reference_opt_state(model: Model, tree: dict, device=None) -> dict:
+    """The inverse of :func:`reference_opt_state`: the reference's AdamW
+    state as the port's, keyed by ``model.named_parameters()``'s names, on
+    ``device`` (default: the model's). Raises on a missing or extra leaf
+    or a shape mismatch."""
+    device = model.device if device is None else torch.device(device)
+    names = {id(p): n for n, p in model.named_parameters()}
+    opt: dict = {"mu": {}, "nu": {}}
+    for k in ("mu", "nu"):
+        def put(param, a, path, k=k):
+            opt[k][names[id(param)]] = _checked(param, a, path).to(
+                device, torch.float32)
+        _read_reference(model, tree[k], put)
+        opt[k] = {n: opt[k][n] for n in names.values()}
+    opt["step"] = torch.as_tensor(np.asarray(tree["step"]),
+                                  dtype=torch.int32, device=device)
+    return opt
 
 
 def reference_cache(model: Model, layers: list) -> tuple:

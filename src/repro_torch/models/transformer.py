@@ -23,11 +23,14 @@ place at ``pos``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
@@ -104,7 +107,7 @@ class ModelConfig:
     # runtime knobs
     attn_chunk: int = 512
     rwkv_chunk: int = 64
-    remat: str = "none"            # none | full | dots (training only)
+    remat: str = "none"            # none | full | dots (under autograd only)
 
     # ---- derived ----------------------------------------------------------
     @property
@@ -131,9 +134,11 @@ class ModelConfig:
 class Params(nn.Module):
     """A nested parameter tree as modules: dict entries become child
     :class:`Params`, lists become ``nn.ModuleList``\\ s, tensors become
-    parameters (``requires_grad=False``: the serving path computes no
-    gradients). Indexed like the reference's dict pytree: ``p["wq"]``,
-    ``"w3" in p``."""
+    parameters. They are built with ``requires_grad=False``, since serving
+    computes no gradients; training turns them on explicitly with
+    ``nn.Module.requires_grad_(True)`` (what
+    ``training.train_step.make_train_step`` does). Indexed like the
+    reference's dict pytree: ``p["wq"]``, ``"w3" in p``."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -552,18 +557,52 @@ def _layer_step(cfg: ModelConfig, spec: LayerSpec, p, x, cache, pos: int,
     return x, new_cache
 
 
+class _MMF32(torch.autograd.Function):
+    """``a @ b`` of low-precision 2-D operands, written in float32 by
+    cuBLAS (``torch.mm(..., out_dtype=float32)``). The backward gives the
+    reference's cotangents of a ``preferred_element_type=f32`` product: the
+    float32 cotangent against the other operand widened to float32, each
+    gradient cast to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = (g @ b.float().t()).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = (a.float().t() @ g).to(b.dtype)
+        return ga, gb
+
+
 def _logits_f32(x, embed):
     """``x @ embed.T`` from model-dtype operands, accumulated and returned in
     float32 (the reference's ``preferred_element_type=f32``). On the card
-    cuBLAS writes the f32 product of bf16 operands directly; elsewhere the
-    operands are widened, which is exact."""
+    cuBLAS writes the f32 product of bf16 operands directly
+    (:class:`_MMF32`); elsewhere the operands are widened, which is exact."""
     if x.dtype == torch.float32 and embed.dtype == torch.float32:
         return x @ embed.t()
     if x.is_cuda:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), embed.t(),
-                       out_dtype=torch.float32)
+        out = _MMF32.apply(x.reshape(-1, x.shape[-1]), embed.t())
         return out.reshape(*x.shape[:-1], embed.shape[0])
     return x.float() @ embed.float().t()
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Remat ``"dots"``: save the products without batch dimensions (the
+    reference's ``dots_with_no_batch_dims_saveable``: ``mm``/``addmm``, not
+    attention's or the experts' ``bmm``) and recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+REMATS = ("none", "full", "dots")
 
 
 # ===========================================================================
@@ -638,13 +677,39 @@ class Model(Params):
 
     def _run_layers(self, x, xkv=None, *, want_cache: bool = False):
         """Every layer in order (the reference's ``_run_groups``, a scan
-        over cycles of the pattern)."""
+        over cycles of the pattern). Under autograd, ``cfg.remat``
+        checkpoints one cycle at a time as the reference's scan body does:
+        ``"full"`` keeps only each cycle's input, ``"dots"`` its
+        batch-free products too (:func:`_dots_policy`). Remat changes what
+        the backward keeps, not the values."""
         cfg = self.cfg
+        if cfg.remat not in REMATS:
+            raise ValueError(f"remat {cfg.remat!r}: one of {REMATS}")
+        if cfg.remat != "none" and torch.is_grad_enabled() and not want_cache:
+            return self._run_cycles_remat(x, xkv), []
         caches = []
         for spec, lp in zip(cfg.layers, self["layers"]):
             x, c = _layer_full(cfg, spec, lp, x, xkv, want_cache=want_cache)
             caches.append(c)
         return x, caches
+
+    def _run_cycles_remat(self, x, xkv):
+        cfg = self.cfg
+        npat = len(cfg.pattern)
+
+        def cycle(x, c):
+            for pi, spec in enumerate(cfg.pattern):
+                x, _ = _layer_full(cfg, spec, self["layers"][c * npat + pi],
+                                   x, xkv, want_cache=False)
+            return x
+
+        kw = {}
+        if cfg.remat == "dots":
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _dots_policy)
+        for c in range(cfg.n_cycles):
+            x = checkpoint(cycle, x, c, use_reentrant=False, **kw)
+        return x
 
     @torch.no_grad()
     def prefill(self, tokens, cache_len: int, *, extra=None):

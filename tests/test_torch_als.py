@@ -329,6 +329,17 @@ def test_launcher_on_cpu(capsys):
     assert "plan " in out and "| compile " in out and "| execute " in out
 
 
+def test_launcher_reports_only_its_own_plan_cache_hit(tmp_path, capsys,
+                                                      monkeypatch):
+    """The plan-cache counter is process-wide: a hit left by an earlier plan
+    in the process is not this run's."""
+    monkeypatch.setitem(tapi.CACHE_STATS, "hits", 3)
+    launcher.main(["--profile", "twitch", "--scale", "2e-5", "--iters", "1",
+                   "--device", "cpu", "--plan-cache", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "plan " in out and "(cache hit)" not in out
+
+
 def test_launcher_has_no_unported_flags(tmp_path, capsys):
     # --plan-cache and --ckpt are ported: a second run hits the cache and
     # resumes from the first run's last checkpoint (no sweep left to run)

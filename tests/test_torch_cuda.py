@@ -962,3 +962,80 @@ def test_lm_bf16_logits_are_f32_products(cuda):
     assert _lm_rel(got, want) < 1e-5
     # a bf16 result would sit on the bf16 grid; the f32 product does not
     assert float((got - got.to(torch.bfloat16).float()).abs().max()) > 1e-3
+
+
+def _train_batch(cfg, device, batch=2, seq=16):
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (batch, seq))
+    out = {"tokens": torch.from_numpy(toks).to(device),
+           "targets": torch.from_numpy(np.roll(toks, -1, 1)).to(device)}
+    out.update(_lm_extra(cfg, device) or {})
+    return out
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+def test_lm_train_step_makes_no_host_sync(cuda, remat):
+    """Two gemma3-1b smoke train steps (forward, autograd, clip, AdamW)
+    keep the loss, lr and grad norm on the card: no operation of either
+    synchronises with the host, under any remat."""
+    import dataclasses
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training.train_step import make_train_step
+    cfg, _, gpu = _lm_pair("gemma3_1b", cuda)
+    gpu.cfg = dataclasses.replace(cfg, remat=remat)
+    step = make_train_step(gpu, opt_mod.AdamWConfig(lr=1e-3, warmup=1),
+                           microbatches=2)
+    opt = opt_mod.adamw_init(dict(gpu.named_parameters()))
+    batch = _train_batch(cfg, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            opt, met = step(opt, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(opt["step"]) == 2
+    assert all(v.is_cuda for v in met.values())
+    assert bool(torch.isfinite(met["loss"]))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lm_train_step_on_card_matches_cpu(cuda, arch):
+    """One train step of each smoke config on the card within 1e-4 of the
+    CPU's (loss, grad norm, every updated parameter; rwkv6's grad norm and
+    parameters within 5e-4, as the smoke holds them)."""
+    from repro_torch.training import optimizer as opt_mod
+    from repro_torch.training.train_step import make_train_step
+    cfg, cpu, gpu = _lm_pair(arch, cuda)
+    ocfg = opt_mod.AdamWConfig(lr=1e-3, warmup=1, total_steps=10)
+    mets = []
+    for m, dev in ((cpu, "cpu"), (gpu, cuda)):
+        _, met = make_train_step(m, ocfg)(
+            opt_mod.adamw_init(dict(m.named_parameters())),
+            _train_batch(cfg, dev))
+        mets.append(met)
+    tol = 5e-4 if arch == "rwkv6_7b" else 1e-4
+    assert _lm_rel(mets[1]["loss"], mets[0]["loss"]) < 1e-4
+    assert _lm_rel(mets[1]["grad_norm"], mets[0]["grad_norm"]) < tol
+    for a, b in zip(gpu.parameters(), cpu.parameters()):
+        assert _lm_rel(a.detach(), b.detach()) < tol
+
+
+def test_lm_bf16_logits_backward_is_the_f32_products(cuda):
+    """The f32 logits of bf16 operands differentiate as the reference's
+    ``preferred_element_type=f32`` product: each cotangent is the f32
+    cotangent against the other operand widened, cast to the operand's
+    bf16 (so within one bf16 rounding, 2^-8 relative, of the widened
+    product's gradients, whose order of sums differs)."""
+    from repro_torch.models.transformer import _logits_f32
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 5, 256, generator=g).to(torch.bfloat16)
+    e = torch.randn(1000, 256, generator=g).to(torch.bfloat16)
+    w = torch.randn(3, 5, 1000, generator=g)
+    xc, ec = (t.to(cuda).requires_grad_(True) for t in (x, e))
+    gx, ge = torch.autograd.grad((_logits_f32(xc, ec) * w.to(cuda)).sum(),
+                                 (xc, ec))
+    assert gx.dtype == ge.dtype == torch.bfloat16
+    xr, er = (t.float().requires_grad_(True) for t in (x, e))
+    rx, re = torch.autograd.grad(((xr @ er.t()) * w).sum(), (xr, er))
+    assert _lm_rel(gx.float(), rx) < 2.0 ** -8
+    assert _lm_rel(ge.float(), re) < 2.0 ** -8

@@ -375,8 +375,9 @@ def test_isolation_from_jax_and_the_reference():
     """The port and chip_smoke.py import neither jax nor anything of the
     reference package: every module of the port, the serving and analysis
     packages, the LM substrate, its serving shim (whose deprecation
-    warning is expected) and launcher, and the ten LM configs among them,
-    and the smoke's own imports."""
+    warning is expected) and launcher, the ten LM configs, the LM training
+    modules and their two launchers among them, and the smoke's own
+    imports."""
     code = (
         "import sys, pkgutil, importlib, warnings, repro_torch\n"
         "import repro_torch.serve, repro_torch.analysis\n"
@@ -388,6 +389,10 @@ def test_isolation_from_jax_and_the_reference():
         " 'repro_torch.analysis.__main__',"
         " 'repro_torch.models.transformer', 'repro_torch.models.lm_serve',"
         " 'repro_torch.serving.serve', 'repro_torch.launch.serve_lm',"
+        " 'repro_torch.training.train_step',"
+        " 'repro_torch.training.optimizer', 'repro_torch.training.data',"
+        " 'repro_torch.training.compression', 'repro_torch.launch.train',"
+        " 'repro_torch.launch.train_lm',"
         " 'repro_torch.configs.gemma3_1b',"
         " 'repro_torch.configs.deepseek_v2_lite'} <= set(sys.modules)\n"
         "from repro_torch.configs import ARCH_IDS\n"
