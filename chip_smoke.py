@@ -229,7 +229,32 @@ Phases, each of which exits non-zero on failure:
    --ckpt-every 3`` on the card; step 6's checkpoint removed, the same
    command resumes at 3, and its step-6 parameters and AdamW state equal
    the uninterrupted run's (bitwise, or within 1e-6, printed).
-15. Summary: one JSON line ``{"kernels": [...]}`` (``ms``, ``plain_ms`` and
+15. Expert-parallel MoE + dry-run, which reach no EC kernel and launch
+   none (counted around (a)); TF32 off. (a) deepseek-v2-lite at its full
+   width in bf16 (16.0 B parameters, seeded on the card) with
+   ``moe_dispatch="a2a"`` under the ``moe_axes`` hint of a (data 1, model
+   4) mesh of 4 logical devices on cuda:0 (16 of the 64 experts on each).
+   At capacity factor 16 neither dispatch drops a copy (both counted by
+   ``models.ffn.count_dropped``; the phase fails otherwise), and a2a is
+   held against ``sort`` on the same weights: the logits of 4 × 256
+   tokens in f32 at full width cut to 4 layers within 1e-4 (relative to
+   max(1, max|logit|)); at full depth in bf16, each MoE layer's output on
+   the sort forward's input to it within 1e-2 (bf16 GEMMs over other row
+   counts round differently, and through 27 seeded layers that flips
+   top-6 routing, so the two full forwards' logits are printed, not
+   gated). At the config's 1.25 each dispatch's dropped copies are
+   printed; then prefill 4 × 256 and 8
+   greedy decode steps with CUDA events, ``sort`` once and ``a2a`` twice
+   (the same tokens, finite logits), prefill ms, decode ms/token (median,
+   p90) and the peak allocation printed beside phase 13 (d)'s ``sort``
+   numbers; the all-to-all bytes each shard counted must equal the model
+   (``models.ffn.a2a_exchange_bytes`` per MoE layer per call). (b) The
+   dry-run (``repro_torch.launch.dryrun``) on the ``meta`` device: gemma3_1b
+   ``train_4k``, deepseek_v2_lite ``prefill_32k`` with ``a2a``,
+   jamba15_large ``decode_32k``, rwkv6_7b ``long_500k``, and the ``cp``
+   amazon r = 1 cell and its ``exchange_ab``, each ``ok`` with finite
+   terms; prints every cell's terms and seconds.
+16. Summary: one JSON line ``{"kernels": [...]}`` (``ms``, ``plain_ms`` and
    ``bound_ms`` summed over the three modes, i.e. one sweep's launches;
    ``launches`` from the main-path run, ``multi_device_launches`` from the
    multi-device path's, ``rebalance_launches`` from the rebalance phase's
@@ -237,7 +262,8 @@ Phases, each of which exits non-zero on failure:
    were counted around the probes; ``tuner_launches`` the EC autotuner's
    candidate runs, ``preset_launches`` the tuned presets' runs,
    ``stream_launches`` the streamed windows', ``operations_launches``
-   phase 11's runs and ``serve_launches`` phase 12's refit), the card's
+   phase 11's runs, ``serve_launches`` phase 12's refit and
+   ``moe_a2a_launches`` phase 15 (a)'s), the card's
    name and power
    limit, and last ``{"ok": true, "device": {...}}``. With ``--out PATH``
    every per-mode number also goes to a JSON file.
@@ -3228,6 +3254,307 @@ def lm_train_phase(tmp: str) -> dict:
     return out
 
 
+# -- phase 15: expert-parallel MoE and the dry-run ---------------------------
+
+EP_SIZE = 4              # expert shards: 64 experts, 16 on each
+EP_BATCH = 4             # divides dp (1) × ep (4): a2a in prefill and decode
+EP_PROMPT = 256
+EP_STEPS = 8
+# a capacity at which no bucket of either dispatch overflows here (checked:
+# both count 0 dropped copies): sort's cap = the tokens, a2a's send buckets
+# = every copy, its local experts' share ceil(4·1,536 / 16) = 384 copies
+EP_NO_DROP_CF = 16.0
+# a2a against sort, no drops, f32 (TF32 off), full width cut to 4 layers:
+# the same products in other groupings (the experts' GEMMs over other row
+# counts, each token's top-6 sum in another order)
+EP_LOGITS_TOL = 1e-4
+EP_F32_LAYERS = 4
+# a2a against sort on each bf16 MoE layer's input of the sort forward, at
+# full depth: bf16 GEMMs over other row counts round differently (2^-8
+# relative); through 27 seeded bf16 layers such a difference flips top-6
+# routing and the logits diverge, so the full-depth bf16 run is held layer
+# by layer and its logits' difference is printed, not gated
+EP_LAYER_TOL = 1e-2
+DRY_CELLS = (("gemma3_1b", "train_4k", None),
+             ("deepseek_v2_lite", "prefill_32k", "a2a"),
+             ("jamba15_large", "decode_32k", None),
+             ("rwkv6_7b", "long_500k", None))
+
+
+def ep_hints(mesh) -> dict:
+    return {"mesh": mesh, "dp": ("data",), "ep": "model", "dp_size": 1,
+            "ep_size": EP_SIZE}
+
+
+def ep_forward(model, cfg, prompts, mesh):
+    """Logits of ``model`` under ``cfg`` (its dispatch and capacity), with
+    the ``moe_axes`` hint, and the copies it dropped."""
+    import torch
+    from repro_torch.models import ffn, shardctx
+    model.cfg = cfg
+    with torch.no_grad(), shardctx.hints(moe_axes=ep_hints(mesh)), \
+            ffn.count_dropped() as dropped:
+        logits = model(prompts)
+    return logits, dropped["copies"]
+
+
+def ep_logits_f32(mesh) -> dict:
+    """a2a against sort on deepseek-v2-lite at full width in f32, cut to
+    ``EP_F32_LAYERS`` layers, at a capacity where neither drops."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import Model
+    base = dataclasses.replace(get_config("deepseek_v2_lite", "full"),
+                               n_layers=EP_F32_LAYERS, dtype="float32",
+                               capacity_factor=EP_NO_DROP_CF)
+    model = Model(base, device=LM_DEVICE,
+                  generator=torch.Generator(LM_DEVICE).manual_seed(0))
+    prompts = torch.randint(
+        0, base.vocab, (EP_BATCH, EP_PROMPT), device=LM_DEVICE,
+        generator=torch.Generator(LM_DEVICE).manual_seed(1))
+    lg_a, drop_a = ep_forward(
+        model, dataclasses.replace(base, moe_dispatch="a2a"), prompts, mesh)
+    lg_s, drop_s = ep_forward(model, base, prompts, mesh)
+    rel = lm_rel(lg_a, lg_s)
+    agree = float((lg_a.argmax(-1) == lg_s.argmax(-1)).float().mean())
+    print(f"EP (a) f32, {EP_F32_LAYERS} layers, capacity {EP_NO_DROP_CF}: "
+          f"dropped copies a2a {drop_a}, sort {drop_s}; a2a vs sort logits "
+          f"rel {rel:.3e} (bound {EP_LOGITS_TOL}), argmax agree {agree:.4f}",
+          flush=True)
+    if drop_a or drop_s:
+        fail(f"EP: capacity {EP_NO_DROP_CF} dropped copies (a2a {drop_a}, "
+             f"sort {drop_s}); the comparison needs none")
+    if not rel <= EP_LOGITS_TOL:
+        fail(f"EP: f32 a2a logits differ from sort's by {rel:.3e}")
+    del model, lg_a, lg_s
+    return {"layers": EP_F32_LAYERS, "logits_rel": rel, "argmax_agree": agree}
+
+
+def ep_layers_bf16(model, base, a2a, prompts, mesh) -> dict:
+    """Every MoE layer of the bf16 model at full depth: the sort forward's
+    input to the layer through both dispatches (no drops), and the two
+    forwards' logits."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import ffn, shardctx
+    wide_s = dataclasses.replace(base, capacity_factor=EP_NO_DROP_CF)
+    wide_a = dataclasses.replace(a2a, capacity_factor=EP_NO_DROP_CF)
+    seen = []
+    moe = ffn.moe
+
+    def recording(x, p, **kw):
+        seen.append((x, p))
+        return moe(x, p, **kw)
+
+    ffn.moe = recording
+    try:
+        lg_s, drop_s = ep_forward(model, wide_s, prompts, mesh)
+    finally:
+        ffn.moe = moe
+    worst = 0.0
+    with torch.no_grad(), ffn.count_dropped() as dropped:
+        for x, p in seen:
+            want, _ = moe(x, p, topk=base.topk, capacity_factor=EP_NO_DROP_CF,
+                          act=base.mlp_kind)
+            with shardctx.hints(moe_axes=ep_hints(mesh)):
+                got, _ = ffn.moe_a2a(
+                    x.reshape(EP_BATCH, -1, x.shape[-1]), p, topk=base.topk,
+                    capacity_factor=EP_NO_DROP_CF, act=base.mlp_kind,
+                    dp_axes=("data",), ep_axis="model", mesh=mesh)
+            worst = max(worst, lm_rel(got.reshape(want.shape), want))
+    lg_a, drop_a = ep_forward(model, wide_a, prompts, mesh)
+    rel = lm_rel(lg_a, lg_s)
+    agree = float((lg_a.argmax(-1) == lg_s.argmax(-1)).float().mean())
+    print(f"EP (a) bf16, {len(seen)} MoE layers on the sort forward's "
+          f"inputs, capacity {EP_NO_DROP_CF}: a2a vs sort worst layer rel "
+          f"{worst:.3e} (bound {EP_LAYER_TOL}), dropped copies "
+          f"{dropped['copies']}; whole forwards (dropped a2a {drop_a}, sort "
+          f"{drop_s}): logits rel {rel:.3e}, argmax agree {agree:.4f}",
+          flush=True)
+    if dropped["copies"] or drop_s:
+        fail(f"EP: capacity {EP_NO_DROP_CF} dropped copies")
+    if not worst <= EP_LAYER_TOL:
+        fail(f"EP: a bf16 MoE layer's a2a output differs from sort's by "
+             f"{worst:.3e}")
+    n_layers = len(seen)
+    del seen, lg_a, lg_s
+    return {"moe_layers": n_layers, "worst_layer_rel": worst,
+            "logits_rel": rel, "argmax_agree": agree,
+            "forward_dropped": {"a2a": drop_a, "sort": drop_s}}
+
+
+def ep_a2a_bytes(cfg, t_loc: int) -> int:
+    """The modelled all-to-all bytes one shard sends per MoE layer for
+    ``t_loc`` local tokens (``models.ffn.a2a_exchange_bytes``)."""
+    from repro_torch.models import ffn
+    s_b = min(max(1, -(-int(t_loc * cfg.topk * cfg.capacity_factor)
+                       // EP_SIZE)), t_loc * cfg.topk)
+    return ffn.a2a_exchange_bytes(EP_SIZE, s_b, cfg.d_model, 2)
+
+
+def ep_timings(r: dict) -> dict:
+    dec = np.asarray(r["step_ms"])
+    return {"prefill_ms": r["prefill_ms"],
+            "decode_ms_median": float(np.median(dec)),
+            "decode_ms_p90": float(np.percentile(dec, 90)),
+            "wall_s": r["wall_s"]}
+
+
+def ep_moe_case() -> dict:
+    """(a): deepseek-v2-lite at full width in bf16 with ``moe_dispatch=
+    "a2a"`` on a (data 1, model 4) mesh of 4 logical devices on cuda:0."""
+    import dataclasses
+
+    import torch
+    from repro_torch.comm import volume
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import DescMesh
+    from repro_torch.models import shardctx
+    from repro_torch.models.transformer import Model
+    base = get_config("deepseek_v2_lite", "full")
+    a2a = dataclasses.replace(base, moe_dispatch="a2a")
+    mesh = DescMesh((1, EP_SIZE), ("data", "model"),
+                    devices=[LM_DEVICE] * EP_SIZE)
+    f32 = ep_logits_f32(mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(a2a, device=LM_DEVICE,
+                  generator=torch.Generator(LM_DEVICE).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = torch.randint(
+        0, base.vocab, (EP_BATCH, EP_PROMPT), device=LM_DEVICE,
+        generator=torch.Generator(LM_DEVICE).manual_seed(1))
+    n_moe = sum(sp.ffn == "moe" for sp in base.layers)
+
+    layers = ep_layers_bf16(model, base, a2a, prompts, mesh)
+    # the config's own capacity: what each dispatch drops
+    _, cfg_drop_a = ep_forward(model, a2a, prompts, mesh)
+    _, cfg_drop_s = ep_forward(model, base, prompts, mesh)
+    print(f"EP (a) capacity {base.capacity_factor} (the config's): dropped "
+          f"copies a2a {cfg_drop_a}, sort {cfg_drop_s} of "
+          f"{EP_BATCH * EP_PROMPT * base.topk * n_moe}", flush=True)
+
+    # served greedily: sort at the same batch, then a2a twice (bytes
+    # counted on the second run)
+    cache_len = EP_PROMPT + EP_STEPS
+    model.cfg = base
+    sort_run = timed_greedy(model, prompts, EP_STEPS, cache_len)
+    model.cfg = a2a
+    runs = []
+    with shardctx.hints(moe_axes=ep_hints(mesh)):
+        for i in range(2):
+            volume.reset_sent_bytes()
+            runs.append(timed_greedy(model, prompts, EP_STEPS, cache_len))
+            sent = [volume.sent_by_kind(k).get("all_to_all", 0)
+                    for k in range(EP_SIZE)]
+    volume.reset_sent_bytes()
+    peak = torch.cuda.max_memory_allocated()
+    if not torch.equal(runs[0]["tokens"], runs[1]["tokens"]):
+        fail("EP: two greedy a2a runs gave different tokens")
+    if not all(bool(torch.isfinite(lg).all()) for r in runs
+               for lg in r["logits"]):
+        fail("EP: non-finite a2a logits")
+    # the prefill's local tokens, then one token per shard per decode step
+    per_layer = (ep_a2a_bytes(a2a, EP_BATCH * EP_PROMPT // EP_SIZE)
+                 + EP_STEPS * ep_a2a_bytes(a2a, EP_BATCH // EP_SIZE))
+    model_bytes = n_moe * per_layer
+    print(f"EP (a) all-to-all bytes per shard {sent} (model {model_bytes}: "
+          f"{n_moe} MoE layers × (prefill + {EP_STEPS} decode steps))",
+          flush=True)
+    if sent != [model_bytes] * EP_SIZE:
+        fail(f"EP: counted all-to-all bytes {sent}, model {model_bytes}")
+    t_sort, t_a2a = ep_timings(sort_run), [ep_timings(r) for r in runs]
+    for label, tm in [("sort", t_sort)] + [(f"a2a run {i + 1}", t)
+                                           for i, t in enumerate(t_a2a)]:
+        print(f"  {label}: prefill {tm['prefill_ms']:.2f} ms | decode "
+              f"median {tm['decode_ms_median']:.3f} ms/token, p90 "
+              f"{tm['decode_ms_p90']:.3f}", flush=True)
+    print(f"  {sum(p.numel() for p in model.parameters())} parameters, "
+          f"init {init_s:.2f} s, peak allocation {peak / 2**30:.2f} GiB",
+          flush=True)
+    out = {"init_s": init_s, "no_drop_cf": EP_NO_DROP_CF, "f32": f32,
+           "bf16": layers,
+           "dropped_cfg": {"a2a": cfg_drop_a, "sort": cfg_drop_s},
+           "a2a_bytes_per_shard": sent, "a2a_bytes_model": model_bytes,
+           "sort": t_sort, "a2a": t_a2a, "peak_alloc_bytes": peak,
+           "tokens_row0": runs[0]["tokens"][0].tolist()}
+    del model, runs, sort_run
+    return out
+
+
+def dryrun_case(tmp: str) -> dict:
+    """(b): the dry-run's cells on the ``meta`` device, each ``ok`` with
+    finite terms."""
+    import math
+    from repro_torch.launch import dryrun
+    out_dir = os.path.join(tmp, "dryrun")
+    recs = {}
+    t_all = time.perf_counter()
+    for arch, cell, dispatch in DRY_CELLS:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, cell, multi_pod=False,
+                              moe_dispatch=dispatch, out_dir=out_dir)
+        recs[f"{arch}/{cell}"] = rec
+        rec["wall_s"] = time.perf_counter() - t0
+    rec = dryrun.run_cp_cell(multi_pod=False, profile="amazon",
+                             replication=1, out_dir=out_dir)
+    rec["wall_s"] = 0.0
+    recs["cp_amazon/r1"] = rec
+    ab = dryrun.run_cp_exchange_ab(multi_pod=False, profile="amazon",
+                                   replication=1, out_dir=out_dir)
+    for name, rec in recs.items():
+        if not rec.get("ok"):
+            fail(f"dry-run {name}: {rec.get('error')}")
+        t = rec["roofline"]
+        if not all(math.isfinite(t[k]) for k in
+                   ("t_compute", "t_memory", "t_collective")):
+            fail(f"dry-run {name}: non-finite terms {t}")
+        print(f"  {name}: C {t['t_compute'] * 1e3:.3f} ms, M "
+              f"{t['t_memory'] * 1e3:.3f} ms, X "
+              f"{t['t_collective'] * 1e3:.3f} ms ({t['bottleneck']}), "
+              f"{rec['wall_s']:.1f} s", flush=True)
+    if not (ab.get("ok") and ab["same_volume"]):
+        fail(f"dry-run exchange_ab: {ab}")
+    print(f"  cp_amazon/exchange_ab: ring {ab['collective_bytes']['ring']:.0f}"
+          f" B, overlap {ab['collective_bytes']['overlap']:.0f} B, "
+          f"same_volume", flush=True)
+    wall = time.perf_counter() - t_all
+    print(f"EP (b) dry-run: {len(recs) + 1} cells ok in {wall:.1f} s",
+          flush=True)
+    return {"wall_s": wall, "cells": {k: {"roofline": r["roofline"],
+                                          "wall_s": r["wall_s"]}
+                                      for k, r in recs.items()},
+            "exchange_ab": ab["collective_bytes"]}
+
+
+def ep_phase(tmp: str) -> dict:
+    """Phase 15: expert-parallel MoE on the card, then the dry-run."""
+    import gc
+
+    import torch
+    from repro_torch.kernels import _build
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    out = {"moe": ep_moe_case()}
+    out["launches"] = dict(_build.LAUNCHES)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["dryrun"] = dryrun_case(tmp)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"EP phase: {out['wall_s']:.1f} s (EC launches {out['launches']})",
+          flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scale", type=float, default=3e-2,
@@ -3390,6 +3717,14 @@ def run_phases(args, api, kind: str, smi: str, tmp: str) -> None:
     phase("LM train")
     lm_train = lm_train_phase(tmp)
 
+    phase("expert-parallel MoE + dry-run")
+    ep = ep_phase(tmp)
+    d13 = lm["deepseek_v2_lite"]["runs"]
+    print("  phase 13 (d) sort, B 2: " + "; ".join(
+        f"prefill {r['prefill_ms']:.2f} ms, decode median "
+        f"{r['decode_ms_median']:.3f} ms/token, p90 {r['decode_ms_p90']:.3f}"
+        for r in d13), flush=True)
+
     phase("summary")
     kernels = []
     for name in KERNELS:
@@ -3419,6 +3754,8 @@ def run_phases(args, api, kind: str, smi: str, tmp: str) -> None:
             "operations_launches": ops["launches"][name],
             # the serving refit's sweeps (phase 12)
             "serve_launches": serve["launches"][name],
+            # phase 15's expert-parallel MoE (no EC kernel on its path)
+            "moe_a2a_launches": ep["launches"][name],
             "max_abs_err": max(x["max_abs_err"] for x in r),
             "ms": sum(x["ms"] for x in r),
             "plain_ms": sum(x["plain_ms"] for x in r),
@@ -3447,7 +3784,8 @@ def run_phases(args, api, kind: str, smi: str, tmp: str) -> None:
               "per_mode": recs, "multi_device": md, "rebalance": rb,
               "store": st, "ref_order": ref_rec, "presets": presets,
               "streaming": stream, "operations": ops, "serve": serve,
-              "lm_serve": lm, "lm_train": lm_train, "kernels": kernels}
+              "lm_serve": lm, "lm_train": lm_train, "ep": ep,
+              "kernels": kernels}
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

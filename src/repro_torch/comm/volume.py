@@ -19,19 +19,30 @@ the port's collectives make between two logical devices adds its bytes to
 the sending device's count (:func:`count_sent`); :func:`reset_sent_bytes`
 zeroes the counts and :func:`sent_bytes` reads them for every logical
 device. Where the model holds, each device's counted bytes equal the
-modelled ones.
+modelled ones. :func:`measured_exchange_bytes` reads the counts under the
+reference's collective names (its ``by_kind`` / ``total_bytes`` record),
+naming each send kind by the collective the reference lowers that
+schedule to.
 """
 from __future__ import annotations
 
 import numpy as np
 
 __all__ = ["wire_bytes", "mode_exchange_bytes", "modelled_exchange_bytes",
-           "count_sent", "reset_sent_bytes", "sent_bytes"]
+           "count_sent", "reset_sent_bytes", "sent_bytes", "sent_by_kind",
+           "EXCHANGE_COLLECTIVES", "collective_kind",
+           "measured_exchange_bytes"]
 
 _WIRE_BYTES = {"float32": 4, "bfloat16": 2, None: 4}
 
-# (kind, logical device) -> bytes sent; kind is "gather" or "merge"
+# (kind, logical device) -> bytes sent; kind is "gather", "merge" (the CP
+# exchange, comm.collectives) or "all_to_all" (models.ffn.moe_a2a)
 _SENT: dict[tuple[str, int], int] = {}
+
+# the collectives that carry exchange traffic, by the reference's HLO names
+# (an all-to-all is the MoE dispatch's, not the exchange's)
+EXCHANGE_COLLECTIVES = ("all-gather", "collective-permute", "reduce-scatter",
+                        "all-reduce")
 
 
 def wire_bytes(wire_dtype: str | None) -> int:
@@ -80,7 +91,8 @@ def reset_sent_bytes() -> None:
 def sent_bytes(num_devices: int) -> list[dict]:
     """Bytes that each logical device ``0 .. num_devices - 1`` sent since
     the last reset, per kind and in total (zero where it sent nothing)."""
-    stray = sorted({d for _, d in _SENT if not 0 <= d < num_devices})
+    stray = sorted({d for k, d in _SENT if k in ("gather", "merge")
+                    and not 0 <= d < num_devices})
     if stray:
         raise ValueError(f"bytes counted for devices {stray} outside a "
                          f"mesh of {num_devices}")
@@ -90,3 +102,50 @@ def sent_bytes(num_devices: int) -> list[dict]:
         return {"gather_bytes": g, "merge_bytes": m, "total_bytes": g + m}
 
     return [kinds(d) for d in range(num_devices)]
+
+
+def sent_by_kind(device: int) -> dict:
+    """Bytes that logical device ``device`` sent since the last reset, by
+    send kind (only the kinds it sent)."""
+    return {k: v for (k, d), v in sorted(_SENT.items()) if d == device}
+
+
+def collective_kind(kind: str, spec=None) -> str:
+    """The reference's collective name for a send ``kind`` under ``spec``
+    (an ``ExchangeSpec``; default: the default schedule): a ``ring`` or
+    ``overlap`` gather and a ``ring_rs`` merge lower to
+    ``collective-permute``, an ``allgather`` gather to ``all-gather``, a
+    ``psum_scatter`` merge to ``reduce-scatter``, the MoE exchange to
+    ``all-to-all``."""
+    variant = getattr(spec, "variant", "ring")
+    merge = getattr(spec, "merge", "psum_scatter")
+    if kind == "gather":
+        return "all-gather" if variant == "allgather" else "collective-permute"
+    if kind == "merge":
+        return "reduce-scatter" if merge == "psum_scatter" \
+            else "collective-permute"
+    if kind == "all_to_all":
+        return "all-to-all"
+    raise ValueError(f"unknown send kind {kind!r}")
+
+
+def measured_exchange_bytes(spec=None, *, device: int | None = None) -> dict:
+    """Per-device exchange bytes counted since the last reset, split by the
+    reference's collective name, with their sum: the reference's record
+    (``by_kind``, ``total_bytes``), read from :func:`count_sent`'s counts
+    instead of compiled HLO. ``device``: one logical device (default: the
+    one that sent the most exchange bytes). Only
+    :data:`EXCHANGE_COLLECTIVES` count."""
+    devices = sorted({d for _, d in _SENT}) if device is None else [device]
+
+    def picked(d):
+        out: dict[str, float] = {}
+        for k, v in sent_by_kind(d).items():
+            name = collective_kind(k, spec)
+            if name in EXCHANGE_COLLECTIVES:
+                out[name] = out.get(name, 0.0) + float(v)
+        return out
+
+    by_dev = [picked(d) for d in devices] or [{}]
+    best = max(by_dev, key=lambda c: sum(c.values()))
+    return {"by_kind": best, "total_bytes": float(sum(best.values()))}

@@ -13,17 +13,17 @@ on ``SyntheticLM`` (seed 0). ``--remat`` sets the config's remat policy
 steps in the reference's payload layout (``{"params", "opt"}``, the
 ``groups`` layout of ``models.convert``) and resumes from the latest
 checkpoint there, the reference's own included; the data stream resumes
-at the checkpoint's step. ``--dry`` is the dry-run, which the port does
-not have yet: it exits non-zero with a message that names its slice.
+at the checkpoint's step. ``--dry`` runs the dry-run of ``--arch`` and
+``--shape`` (default ``train_4k``) on ``--mesh`` instead
+(``repro_torch.launch.dryrun.run_cell`` on the ``meta`` device: no card,
+no allocation), writes its record to ``experiments/dryrun_torch/`` and
+exits non-zero if the cell failed.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import time
-
-DRY_RUN_SLICE = ("the dry-run (repro_torch.launch.dryrun) belongs to the "
-                 "port's multi-device LM slice, which has not landed")
 
 
 def restore_training(mgr, model):
@@ -66,7 +66,14 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     if args.dry:
-        raise SystemExit(f"--dry: {DRY_RUN_SLICE}")
+        from repro_torch.launch import dryrun
+        rec = dryrun.run_cell(args.arch, args.shape,
+                              multi_pod=args.mesh == "pod2", remat=args.remat,
+                              microbatches=args.microbatches)
+        dryrun._report(rec)
+        if not rec["ok"]:
+            raise SystemExit(f"--dry: {args.arch} {args.shape} failed")
+        return rec
 
     import torch
 

@@ -84,7 +84,9 @@ def mamba_step(x_t, state, p):
     a = -torch.exp(p["A_log"])
     da = torch.exp(dt[..., None] * a[None])
     h = da * state["h"] + (dt * xc)[..., None] * bb[:, None, :]
-    y = torch.einsum("bdn,bn->bd", h, cc) + xc * p["D"][None, :]
+    # f32 state against the model's dtype: the product in f32, as JAX's
+    # einsum promotes
+    y = torch.einsum("bdn,bn->bd", h, cc.to(h.dtype)) + xc * p["D"][None, :]
     out = (y * F.silu(z)).to(x_t.dtype) @ p["out_proj"]
     return out, {"conv": conv_buf[:, 1:], "h": h}
 

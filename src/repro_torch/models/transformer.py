@@ -450,19 +450,21 @@ def _ffn(cfg: ModelConfig, spec: LayerSpec, p, x):
     if spec.ffn == "moe":
         b, s, d = x.shape
         moe_axes = shardctx.get("moe_axes")
-        # the reference runs moe_a2a here when the batch divides dp×ep;
+        # the reference's condition: a2a when the batch divides dp×ep;
         # otherwise (and always without the hint) the sorted dispatch
         if (cfg.moe_dispatch == "a2a" and moe_axes is not None
                 and b % (moe_axes["dp_size"] * moe_axes["ep_size"]) == 0):
-            raise NotImplementedError(
-                "moe_dispatch='a2a' under a moe_axes hint is the "
-                "expert-parallel path of the multi-device slice")
-        out, _aux = ffn_mod.moe(
-            x.reshape(b * s, d), p, topk=cfg.topk,
-            capacity_factor=cfg.capacity_factor,
-            dispatch=cfg.moe_dispatch if cfg.moe_dispatch != "a2a" else "sort",
-            act=cfg.mlp_kind)
-        out = out.reshape(b, s, d)
+            out, _aux = ffn_mod.moe_a2a(
+                x, p, topk=cfg.topk, capacity_factor=cfg.capacity_factor,
+                act=cfg.mlp_kind, dp_axes=moe_axes["dp"],
+                ep_axis=moe_axes["ep"], mesh=moe_axes["mesh"])
+        else:
+            out, _aux = ffn_mod.moe(
+                x.reshape(b * s, d), p, topk=cfg.topk,
+                capacity_factor=cfg.capacity_factor,
+                dispatch=cfg.moe_dispatch if cfg.moe_dispatch != "a2a"
+                else "sort", act=cfg.mlp_kind)
+            out = out.reshape(b, s, d)
         if cfg.n_shared_experts:
             sp = {"w1": p["s1"], "w2": p["s2"]}
             if "s3" in p:

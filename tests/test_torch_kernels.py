@@ -376,8 +376,8 @@ def test_isolation_from_jax_and_the_reference():
     reference package: every module of the port, the serving and analysis
     packages, the LM substrate, its serving shim (whose deprecation
     warning is expected) and launcher, the ten LM configs, the LM training
-    modules and their two launchers among them, and the smoke's own
-    imports."""
+    modules and their two launchers, the dry-run's modules and the example
+    twins among them, and the smoke's own imports."""
     code = (
         "import sys, pkgutil, importlib, warnings, repro_torch\n"
         "import repro_torch.serve, repro_torch.analysis\n"
@@ -393,6 +393,10 @@ def test_isolation_from_jax_and_the_reference():
         " 'repro_torch.training.optimizer', 'repro_torch.training.data',"
         " 'repro_torch.training.compression', 'repro_torch.launch.train',"
         " 'repro_torch.launch.train_lm',"
+        " 'repro_torch.launch.dryrun', 'repro_torch.launch.shapes',"
+        " 'repro_torch.launch.mesh', 'repro_torch.launch.roofline',"
+        " 'repro_torch.launch.quickstart',"
+        " 'repro_torch.launch.decompose_billion_profile',"
         " 'repro_torch.configs.gemma3_1b',"
         " 'repro_torch.configs.deepseek_v2_lite'} <= set(sys.modules)\n"
         "from repro_torch.configs import ARCH_IDS\n"

@@ -625,11 +625,15 @@ def test_port_checkpoint_resumes_in_reference_launcher(tmp_path, monkeypatch,
         np.testing.assert_array_equal(a, b)
 
 
-def test_dry_run_names_its_slice(capsys):
-    with pytest.raises(SystemExit) as e:
-        launch_train.main(["--arch", "gemma3_1b", "--dry"])
-    assert e.value.code != 0
-    assert "multi-device LM slice" in str(e.value.code)
+def test_dry_run_names_its_slice(capsys, tmp_path, monkeypatch):
+    """``--dry`` runs the dry-run's ``train_4k`` cell of ``--arch`` on the
+    meta device and writes its record (``launch.dryrun.run_cell``)."""
+    from repro_torch.launch import dryrun
+    monkeypatch.setattr(dryrun, "OUT_DIR", str(tmp_path))
+    rec = launch_train.main(["--arch", "gemma3_1b", "--dry"])
+    assert rec["ok"] and rec["cell"] == "train_4k"
+    assert capsys.readouterr().out.startswith("OK   gemma3_1b")
+    assert (tmp_path / "gemma3_1b__train_4k__pod1.json").exists()
 
 
 def test_launchers_default_to_the_card():
