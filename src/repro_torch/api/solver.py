@@ -54,13 +54,15 @@ Observability (:mod:`repro_torch.obs`): every report the solver serves is a
 view over its own :class:`~repro_torch.obs.MetricsRegistry` (``report()``)
 and :class:`~repro_torch.obs.EventLog` (``events``: ``sweep``,
 ``stream_sweep``, ``rebalance`` and the streamer's ``h2d_build`` /
-``h2d_wait`` events). With the span tracer enabled (``runtime.trace=True``
-or ``obs.trace.enable()``) a resident sweep runs
-:func:`~repro_torch.core.als.als_traced_sweep` — the EC and the exchange
-of each mode as separate stages, each in its own span and followed by a
-synchronise of every card of the mesh — with fits and factors bitwise
-those of the untraced sweep; ``dump_trace`` writes the spans as Chrome
-trace JSON. Tracing off, each span is one shared no-op object.
+``h2d_wait`` events). A sweep runs the same code traced or not: its
+stages carry spans (``sweep`` ⊃ {``shards``, ``mode_update`` ⊃ {``ec``,
+``exchange``, ``solve`` ⊃ ``eigh``}, ``fit``}; the EC's own stages in
+:mod:`repro_torch.kernels.ops`). With the span tracer enabled
+(``runtime.trace=True`` or ``obs.trace.enable()``) they are recorded and
+each stage's span ends in a synchronise of its cards, with fits and
+factors bitwise those of the untraced sweep; ``dump_trace`` writes the
+spans as Chrome trace JSON. Tracing off, each span is one shared no-op
+object, or a bare ``torch.profiler`` scope while a profiler records.
 """
 from __future__ import annotations
 
@@ -242,9 +244,6 @@ class CPSolver:
         self._ckpt_mgr = None
         if config.runtime.checkpoint_dir is not None:
             self._ckpt_mgr = CheckpointManager(config.runtime.checkpoint_dir)
-        # traced resident sweeps need the EC and the exchange as separate
-        # stages — built on the first traced sweep (see _traced_updates)
-        self._traced_updates_cache = None
         self.metrics.register_provider("overlap", self.overlap_report)
         self.metrics.register_provider("imbalance", self.imbalance_report)
         self.metrics.register_provider(
@@ -377,19 +376,6 @@ class CPSolver:
             sweep=sweep, fits=list(fits))
 
     # -- execution ---------------------------------------------------------
-    def _traced_updates(self) -> list[als_mod.StreamingModeUpdate]:
-        """The EC and the exchange as separate stages for the RESIDENT plan
-        — the traced sweep's updates (the streaming triples, one window
-        per mode). Accumulating the EC into a zero accumulator and then
-        finishing gives the bits of the one-shot update; splitting them is
-        what lets each stage carry its own span. Built on the first traced
-        sweep."""
-        if self._traced_updates_cache is None:
-            self._traced_updates_cache = als_mod.make_streaming_sweep_updates(
-                self.plan, self.mesh, rank=self.config.rank,
-                exchange_spec=self.exchange_spec, **self._kernel_kw)
-        return self._traced_updates_cache
-
     def sweep(self) -> als_mod.ALSState:
         """One full ALS sweep (all modes). The appended fit is a 0-d device
         tensor (reading it blocks the host).
@@ -399,23 +385,18 @@ class CPSolver:
         sweep's transfer and exposed seconds are emitted as a
         ``stream_sweep`` event (see :attr:`stream_events`).
 
-        With the span tracer enabled a resident sweep runs
-        :func:`~repro_torch.core.als.als_traced_sweep` instead: EC and
-        exchange as separate stages with their own spans, fits still
-        bitwise identical, at the cost of a synchronise after each
-        stage."""
-        tracer = obs_trace.get_tracer()
-        with tracer.span("sweep", sweep=self.state.sweep + 1, annotate=True):
+        With the span tracer enabled the stages' spans are recorded, each
+        ending in a synchronise of its cards; fits and factors stay
+        bitwise those of the untraced sweep."""
+        with obs_trace.span("sweep", sweep=self.state.sweep + 1,
+                            annotate=True):
             if self.streaming:
                 self._streaming_sweep()
-            elif tracer.enabled:
-                self.state = als_mod.als_traced_sweep(
-                    self.plan, self.mesh, self.dev_arrays, self.state,
-                    self._traced_updates())
             else:
-                self.state = als_mod.als_sweep(self.plan, self.mesh,
-                                               self.dev_arrays, self.state,
-                                               self.updates)
+                with obs_trace.span("shards", annotate=True):
+                    dev = self.dev_arrays
+                self.state = als_mod.als_sweep(self.plan, self.mesh, dev,
+                                               self.state, self.updates)
         self.events.emit("sweep", sweep=self.state.sweep)
         return self.state
 
@@ -663,8 +644,10 @@ class CPSolver:
     def dump_trace(self, path: str) -> dict:
         """Export every span the process tracer recorded as Chrome-trace
         JSON (load in ``chrome://tracing`` or https://ui.perfetto.dev);
-        returns the trace dict. Spans nest run → sweep → mode_update →
-        {ec, exchange, h2d_window} (+ plan/compile/checkpoint/rebalance)."""
+        returns the trace dict. Spans nest run → sweep → {shards,
+        mode_update → {ec → {ec.args, ec.kernel → ec.items, ec.mask},
+        exchange, solve → eigh}, fit} (a streamed sweep: h2d_window and
+        ec per super-shard) (+ plan/compile/checkpoint/rebalance)."""
         return obs_export.dump_chrome_trace(
             path, obs_trace.get_tracer().records())
 

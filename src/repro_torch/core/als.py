@@ -28,6 +28,14 @@ device tensor, read only when the caller asks. (On CUDA,
 error check, so the host waits for each mode's MTTKRP before it enqueues
 that mode's solve.)
 
+Every stage runs in a span of :mod:`repro_torch.obs.trace`: per mode
+``mode_update`` ⊃ {``ec``, ``exchange``, ``solve`` ⊃ ``eigh``} (one
+``solve`` per replica), then the sweep's ``fit``. The same code runs
+traced or not, with the same bits: with the tracer on, each stage's span
+synchronises its cards before it ends, so that it ends when its device
+work does; with the tracer off the spans are no-ops, or bare
+``torch.profiler`` scopes while a profiler records.
+
 Factor matrices live in the padded ownership layout of their mode (see
 core/partition.py); padding rows are zero and stay zero.
 
@@ -35,10 +43,7 @@ Epoch streaming (:func:`als_streaming_sweep`) runs the same sweep over an
 out-of-core plan's super-shards: per mode, each window's partial EC is
 folded into a zero accumulator, then merge, exchange and solve run once.
 Its fits and factors are bitwise those of :func:`als_sweep` on the
-resident shards of the same plan. :func:`als_traced_sweep` runs the
-resident plan through the same split (one window per mode), so that the EC
-and the exchange of each mode carry spans of their own
-(:mod:`repro_torch.obs.trace`), with the same bits.
+resident shards of the same plan.
 """
 from __future__ import annotations
 
@@ -57,7 +62,7 @@ __all__ = ["ALSState", "init_factors", "replicate", "make_mode_update",
            "make_sweep_updates", "als_sweep", "fit_from_stats",
            "unpad_factors", "StreamingModeUpdate",
            "make_streaming_mode_update", "make_streaming_sweep_updates",
-           "als_streaming_sweep", "als_traced_sweep", "synchronize"]
+           "als_streaming_sweep", "synchronize"]
 
 
 @dataclasses.dataclass
@@ -97,7 +102,8 @@ def replicate(x: np.ndarray, devices) -> list[torch.Tensor]:
 
 def _pinv_psd(v: torch.Tensor, rcond: float = 1e-8) -> torch.Tensor:
     """Pseudo-inverse of a symmetric PSD R×R matrix via eigh (stable, tiny)."""
-    w, u = torch.linalg.eigh(v)
+    with obs_trace.span("eigh", annotate=True):
+        w, u = torch.linalg.eigh(v)
     w_inv = torch.where(w > rcond * w.abs().max(), 1.0 / w,
                         torch.zeros_like(w))
     return (u * w_inv[None, :]) @ u.T
@@ -116,6 +122,18 @@ def _solve(m: torch.Tensor, f_old: torch.Tensor, grams, mode: int):
     return f_new, f_new.T @ f_new, lam
 
 
+def _solve_replicas(ms, f_old, grams, mode: int):
+    """:func:`_solve` on every replica, each in a ``solve`` span that ends
+    when its card is done: ``(F_d, G_d, lam)``, per-device lists."""
+    solved = []
+    for k, m in enumerate(ms):
+        with obs_trace.span("solve", mode=mode, device=k, annotate=True,
+                            sync=(m.device,)):
+            solved.append(_solve(m, f_old[k], [g[k] for g in grams], mode))
+    f_new, g_new, lam = (list(x) for x in zip(*solved))
+    return f_new, g_new, lam
+
+
 def make_mode_update(plan: CPPlan, mode: int, mesh, **mttkrp_kw) -> Callable:
     """``(F_d_old, dev_arrays, other_factors, grams) -> (F_d, G_d, M_d,
     lam)``, every argument and result replicated (a per-device list).
@@ -130,15 +148,18 @@ def make_mode_update(plan: CPPlan, mode: int, mesh, **mttkrp_kw) -> Callable:
     :class:`~repro_torch.core.mttkrp.MTTKRPFn`.
     """
     mfn = dmttkrp.make_mttkrp_fn(plan.modes[mode], mesh, **mttkrp_kw)
+    cards = mesh.devices
 
     def update(f_old, dev, other_factors, grams):
         factors = list(other_factors[:mode]) + [f_old] + \
             list(other_factors[mode:])
-        ms = mfn(dev, factors)                  # per device (padded_d, R)
+        with obs_trace.span("ec", mode=mode, annotate=True, sync=cards):
+            partials = mfn.local(dev, factors)
+        with obs_trace.span("exchange", mode=mode, annotate=True,
+                            sync=cards):
+            ms = mfn.exchange(partials)         # per device (padded_d, R)
         # the EC ignores the output mode's factor, so F_d_old is free now
-        solved = [_solve(m, f_old[k], [g[k] for g in grams], mode)
-                  for k, m in enumerate(ms)]
-        f_new, g_new, lam = (list(x) for x in zip(*solved))
+        f_new, g_new, lam = _solve_replicas(ms, f_old, grams, mode)
         return f_new, g_new, ms, lam
 
     update.mttkrp_fn = mfn
@@ -179,10 +200,11 @@ def make_streaming_mode_update(plan: CPPlan, mode: int, mesh, *, rank: int,
                                **mttkrp_kw) -> StreamingModeUpdate:
     """Streaming twin of :func:`make_mode_update`: the MTTKRP is split into
     a per-super-shard partial accumulation (EC only, no exchange) and a
-    one-shot finish (merge + exchange + solve). Folding each super-shard's
-    masked EC into a zero accumulator reproduces the resident partial bit
-    for bit (windows split at tile boundaries: every output row is computed
-    by exactly one super-shard), so fits match the resident path bitwise.
+    one-shot finish (merge + exchange, then the solve). Folding each
+    super-shard's masked EC into a zero accumulator reproduces the
+    resident partial bit for bit (windows split at tile boundaries: every
+    output row is computed by exactly one super-shard), so fits match the
+    resident path bitwise.
     Takes the same ``mttkrp_kw`` as :func:`make_mode_update`."""
     unknown = set(mttkrp_kw) - set(_STREAM_KERNEL_KEYS
                                    + _STREAM_EXCHANGE_KEYS)
@@ -200,10 +222,10 @@ def make_streaming_mode_update(plan: CPPlan, mode: int, mesh, *, rank: int,
         return dmttkrp.zero_partials(part, mesh, rank)
 
     def finish(f_old, acc, other_factors, grams):
-        ms = ffn(acc)                           # per device (padded_d, R)
-        solved = [_solve(m, f_old[k], [g[k] for g in grams], mode)
-                  for k, m in enumerate(ms)]
-        f_new, g_new, lam = (list(x) for x in zip(*solved))
+        with obs_trace.span("exchange", mode=mode, annotate=True,
+                            sync=mesh.devices):
+            ms = ffn(acc)                       # per device (padded_d, R)
+        f_new, g_new, lam = _solve_replicas(ms, f_old, grams, mode)
         return f_new, g_new, ms, lam
 
     return StreamingModeUpdate(init_acc=init_acc, accumulate=pfn,
@@ -264,57 +286,19 @@ def als_streaming_sweep(plan: CPPlan, mesh, streamer, stream_plans,
                     acc = upd.accumulate(acc, dev, factors)
                     _barrier(acc)
             others = [factors[w] for w in range(n) if w != d]
-            with tracer.span("exchange", mode=d, annotate=True):
-                f_d, g_d, m_d, lam = upd.finish(factors[d], acc, others,
-                                                grams)
-                if tracer.enabled:
-                    # only when traced: close the span at the end of the
-                    # merge, exchange and solve, not at their launch
-                    synchronize(mesh)
+            f_d, g_d, m_d, lam = upd.finish(factors[d], acc, others, grams)
             factors[d], grams[d] = f_d, g_d
             m_last, f_last = m_d, f_d
-    return _finish_sweep(plan, state, factors, grams, m_last, f_last, lam)
-
-
-def als_traced_sweep(plan: CPPlan, mesh, dev_arrays: Sequence,
-                     state: ALSState,
-                     updates: Sequence[StreamingModeUpdate]) -> ALSState:
-    """Traced twin of :func:`als_sweep` for resident shards: each mode runs
-    through a :class:`StreamingModeUpdate` triple built for the *resident*
-    plan, so the EC (``accumulate`` into a zero accumulator — the bits of
-    the one-shot update's partial) and the merge, exchange and solve
-    (``finish``) are separate stages, each in its own span
-    (``mode_update`` ⊃ {``ec``, ``exchange``}) and each followed by a
-    synchronise of every card of the mesh, so that a span ends when its
-    device work does. Fits and factors are bitwise those of
-    :func:`als_sweep`; the synchronises are the cost of stage-attributed
-    timing (the untraced sweep waits for nothing)."""
-    n = plan.nmodes
-    tracer = obs_trace.get_tracer()
-    factors, grams = list(state.factors), list(state.grams)
-    m_last = f_last = lam = None
-    for d in range(n):
-        upd = updates[d]
-        with tracer.span("mode_update", mode=d, annotate=True):
-            with tracer.span("ec", mode=d, annotate=True):
-                acc = upd.accumulate(upd.init_acc(), dev_arrays[d], factors)
-                synchronize(mesh)
-            others = [factors[w] for w in range(n) if w != d]
-            with tracer.span("exchange", mode=d, annotate=True):
-                f_d, g_d, m_d, lam = upd.finish(factors[d], acc, others,
-                                                grams)
-                synchronize(mesh)
-        factors[d], grams[d] = f_d, g_d
-        m_last, f_last = m_d, f_d
     return _finish_sweep(plan, state, factors, grams, m_last, f_last, lam)
 
 
 def _finish_sweep(plan: CPPlan, state: ALSState, factors, grams, m_last,
                   f_last, lam) -> ALSState:
     """The sweep's new state: every replica's fit, replica 0's appended."""
-    fits = [fit_from_stats(plan.norm, m_last[k], f_last[k], lam[k],
-                           [g[k] for g in grams])
-            for k in range(len(lam))]
+    with obs_trace.span("fit", annotate=True, sync=[x.device for x in lam]):
+        fits = [fit_from_stats(plan.norm, m_last[k], f_last[k], lam[k],
+                               [g[k] for g in grams])
+                for k in range(len(lam))]
     return ALSState(factors=factors, lam=lam, grams=grams,
                     sweep=state.sweep + 1, fits=state.fits + [fits[0]],
                     replica_fits=fits)
@@ -347,8 +331,9 @@ def als_sweep(plan: CPPlan, mesh, dev_arrays: Sequence, state: ALSState,
     m_last = f_last = lam = None
     for d in range(n):
         others = [factors[w] for w in range(n) if w != d]
-        f_d, g_d, m_d, lam = updates[d](factors[d], dev_arrays[d], others,
-                                        grams)
+        with obs_trace.span("mode_update", mode=d, annotate=True):
+            f_d, g_d, m_d, lam = updates[d](factors[d], dev_arrays[d],
+                                            others, grams)
         factors[d], grams[d] = f_d, g_d
         m_last, f_last = m_d, f_d
     return _finish_sweep(plan, state, factors, grams, m_last, f_last, lam)

@@ -32,6 +32,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.obs import trace as obs_trace
+
 __all__ = ["SOURCES", "SMEM_LIMIT", "MAX_NUM_BUFFERS", "LAUNCHES",
            "reset_launch_counts", "build", "kernel_function", "check",
            "check_blocking", "require", "item_buffers",
@@ -224,10 +226,10 @@ def item_buffers(variant: str, block_to_tile: torch.Tensor, *,
     """What an EC kernel launch allocates: raise if the rank is above
     :data:`MAX_ITEM_RANK` or the shared memory per block exceeds
     :data:`SMEM_LIMIT`, then return the zeroed ``(num_rows, rank)``
-    f32 output, the work items (:func:`tile_chunks`), the scratch buffer of
-    ``(tile, rank)`` f32 partials of split runs (``torch.empty``: every
-    partial the combine reads is written first) and the shared-memory
-    bytes to request."""
+    f32 output, the work items (:func:`tile_chunks`, in an ``ec.items``
+    span), the scratch buffer of ``(tile, rank)`` f32 partials of split
+    runs (``torch.empty``: every partial the combine reads is written
+    first) and the shared-memory bytes to request."""
     if rank > MAX_ITEM_RANK:
         raise ValueError(f"ec_{variant} takes R <= {MAX_ITEM_RANK}, got "
                          f"{rank}")
@@ -240,7 +242,8 @@ def item_buffers(variant: str, block_to_tile: torch.Tensor, *,
                          f"{SMEM_LIMIT}")
     dev = block_to_tile.device
     out = torch.zeros((num_rows, rank), dtype=torch.float32, device=dev)
-    chunks = tile_chunks(block_to_tile)
+    with obs_trace.span("ec.items", annotate=True, sync=(dev,)):
+        chunks = tile_chunks(block_to_tile)
     partials = torch.empty((chunks.n_parts, tile, rank), dtype=torch.float32,
                            device=dev)
     return out, chunks, partials, smem

@@ -27,6 +27,12 @@ environment variable > default (``blocked``). ``use_kernel=False`` forces
 Dispatch is by the tensors' device: on CPU tensors every variant runs its
 kernel's plain PyTorch version; on CUDA tensors it launches the kernel or
 raises — there is no fallback.
+
+A launch's stages carry spans (:mod:`repro_torch.obs.trace`): ``ec.args``
+(:func:`kernel_args`), ``ec.kernel`` (the ``ec_<variant>`` call, or the
+``ref`` EC; inside it ``_build.item_buffers`` opens ``ec.items``) and
+``ec.mask`` (the unvisited tiles zeroed), each ending in a synchronise of
+its card when the tracer is on.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from repro_torch.kernels._build import SMEM_LIMIT, variant_smem_bytes
 from repro_torch.kernels.mttkrp_blocked import ec_blocked
 from repro_torch.kernels.mttkrp_fused import ec_fused
 from repro_torch.kernels.mttkrp_sorted import ec_sorted
+from repro_torch.obs import trace as obs_trace
 
 __all__ = ["mttkrp_local", "kernel_args", "resolve_variant",
            "kernel_kwargs_from_config",
@@ -137,21 +144,26 @@ def _run_ref(indices, values, local_rows, block_to_tile, factors, *,
              seg_starts, seg_rows):
     del block_to_tile, tile, block_p, tile_mask, num_buffers
     del seg_starts, seg_rows
-    return _ref.mttkrp_local_ref(indices, values, local_rows, factors, mode,
-                                 num_rows)
+    with obs_trace.span("ec.kernel", annotate=True, sync=(values.device,)):
+        return _ref.mttkrp_local_ref(indices, values, local_rows, factors,
+                                     mode, num_rows)
 
 
 def _kernel_runner(variant, kernel, takes_num_buffers):
     def run(indices, values, local_rows, block_to_tile, factors, *, mode,
             num_rows, tile, block_p, tile_mask, num_buffers, seg_starts,
             seg_rows):
-        args = kernel_args(variant, indices, values, local_rows,
-                           block_to_tile, factors, mode=mode, tile=tile,
-                           seg_starts=seg_starts, seg_rows=seg_rows)
+        card = (values.device,)
+        with obs_trace.span("ec.args", annotate=True, sync=card):
+            args = kernel_args(variant, indices, values, local_rows,
+                               block_to_tile, factors, mode=mode, tile=tile,
+                               seg_starts=seg_starts, seg_rows=seg_rows)
         extra = dict(num_buffers=num_buffers) if takes_num_buffers else {}
-        out = kernel(*args, num_rows=num_rows, tile=tile, block_p=block_p,
-                     **extra)
-        return _mask_unvisited(out, tile_mask, tile)
+        with obs_trace.span("ec.kernel", annotate=True, sync=card):
+            out = kernel(*args, num_rows=num_rows, tile=tile,
+                         block_p=block_p, **extra)
+        with obs_trace.span("ec.mask", annotate=True, sync=card):
+            return _mask_unvisited(out, tile_mask, tile)
     return run
 
 

@@ -10,9 +10,6 @@ The counterpart of the reference package's ``obs/profiler.py``:
   (``torch.cuda.nvtx``) for external timeline tools. A CPU-only torch has
   no NVTX and raises on it, so there the range is skipped; nothing is
   computed differently.
-* :func:`device_scope` — a ``record_function`` scope as well (the
-  reference's ``jax.named_scope`` tags lowered ops; eager PyTorch has no
-  lowering, so the scope is the region's host interval).
 * :class:`StreamMonitor` — joins the streamer's per-window ``h2d_build`` /
   ``h2d_wait`` events into a per-window exposed-vs-hidden stall
   attribution: ``exposed_s`` is what the consumer actually blocked on,
@@ -23,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["annotation", "device_scope", "StreamMonitor"]
+__all__ = ["annotation", "StreamMonitor"]
 
 
 class _Annotation:
@@ -53,11 +50,6 @@ class _Annotation:
 def annotation(name: str) -> _Annotation:
     """Host-side profiler annotation context."""
     return _Annotation(name)
-
-
-def device_scope(name: str):
-    """A named ``record_function`` scope around a region of device work."""
-    return torch.profiler.record_function(name)
 
 
 class StreamMonitor:

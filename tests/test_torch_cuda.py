@@ -610,9 +610,9 @@ def test_window_pads_splitting_a_run_on_card(cuda, tmp_path, variant):
 
 @pytest.mark.parametrize("preset", ["sorted", "paper"])
 def test_traced_sweep_is_bitwise_the_untraced_one_on_card(cuda, preset):
-    """The traced split (EC into a zero accumulator, then the finish, each
-    followed by a synchronise) gives the untraced sweep's bits on the card,
-    on a tile whose run is longer than CHUNK_BLOCKS blocks."""
+    """The traced sweep (each stage's span ending in a synchronise) gives
+    the untraced sweep's bits on the card, on a tile whose run is longer
+    than CHUNK_BLOCKS blocks."""
     from repro_torch import obs
     from repro_torch.core.coo import SparseTensor
     rng = np.random.default_rng(4)

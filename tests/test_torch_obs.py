@@ -9,9 +9,10 @@ solver run whose spans nest run → sweep → mode_update → {ec, exchange} at
 ≥ 95 % coverage with fits and factors bitwise those of the untraced run —
 also for every EC variant on a tile whose run is longer than
 ``CHUNK_BLOCKS`` blocks, and for a streamed run. Held against the
-reference: the port's span counts equal the reference's traced run's on the
-same tensor, and a trace exported by either package passes the other's
-validator.
+reference: on every span name the reference records, the port's counts
+equal the reference's traced run's on the same tensor (the port records
+more stages besides), and a trace exported by either package passes the
+other's validator.
 """
 import json
 import os
@@ -85,13 +86,6 @@ def test_disabled_span_is_shared_noop():
     with s1:
         pass
     assert tracer.records() == []
-
-
-def test_timed_measures_even_when_disabled():
-    with obs_trace.timed("work") as t:
-        time.sleep(0.01)
-    assert t.duration >= 0.009
-    assert obs_trace.get_tracer().records() == []
 
 
 def test_span_nesting_and_attrs():
@@ -519,8 +513,8 @@ def _hot_row_tensor(seed=4):
 
 @pytest.mark.parametrize("variant", ["sorted", "fused", "blocked", "ref"])
 def test_traced_sweep_bitwise_on_runs_longer_than_chunk_blocks(variant):
-    """The traced split (EC into a zero accumulator, then the finish) gives
-    the one-shot update's bits also where a tile's run is cut into several
+    """The traced sweep (each stage's span ending in a synchronise) gives
+    the untraced sweep's bits also where a tile's run is cut into several
     work items (the two-level order of the kernels' plain versions)."""
     from _torch_cases import longest_run
     t = _hot_row_tensor()
@@ -574,7 +568,8 @@ def test_traced_streaming_run_spans_and_events(tmp_path):
 
 def test_port_span_counts_equal_the_reference(small_tensor):
     """The reference's traced run and the port's, on the same tensor and
-    config, record the same spans, each as often."""
+    config, record each span the reference records as often; the port
+    records its finer stages (shards, solve, eigh, fit, ec.*) besides."""
     jcfg = japi.preset("paper", {"rank": 4, "runtime.num_devices": 1,
                                  "runtime.tol": 0.0, "runtime.trace": True})
     with japi.compile(japi.plan(small_tensor, jcfg), jcfg) as s:
@@ -582,7 +577,7 @@ def test_port_span_counts_equal_the_reference(small_tensor):
     j_counts = jexport.span_counts(jobs.trace.get_tracer().records())
     t_fits = _run(_port_tensor(small_tensor), _cfg(True)).fits
     t_counts = span_counts(obs_trace.get_tracer().records())
-    assert t_counts == j_counts
+    assert {n: t_counts.get(n) for n in j_counts} == j_counts
     np.testing.assert_allclose(t_fits, j_fits, atol=1e-4)
 
 
@@ -600,8 +595,9 @@ def test_traces_cross_validate_between_the_packages(small_tensor):
         for trace in (t_trace, j_trace):
             res = validate(trace, min_coverage=0.95)
             assert res["ok"], res["problems"]
-    assert validate_trace(j_trace)["span_counts"] == \
-        jexport.validate_trace(t_trace)["span_counts"]
+    j_counts = validate_trace(j_trace)["span_counts"]
+    t_counts = jexport.validate_trace(t_trace)["span_counts"]
+    assert {n: t_counts.get(n) for n in j_counts} == j_counts
 
 
 def test_solver_events_and_dumps(small_tensor, tmp_path):
