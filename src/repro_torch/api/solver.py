@@ -57,12 +57,15 @@ and :class:`~repro_torch.obs.EventLog` (``events``: ``sweep``,
 ``h2d_wait`` events). A sweep runs the same code traced or not: its
 stages carry spans (``sweep`` ⊃ {``shards``, ``mode_update`` ⊃ {``ec``,
 ``exchange``, ``solve`` ⊃ ``eigh``}, ``fit``}; the EC's own stages in
-:mod:`repro_torch.kernels.ops`). With the span tracer enabled
-(``runtime.trace=True`` or ``obs.trace.enable()``) they are recorded and
-each stage's span ends in a synchronise of its cards, with fits and
-factors bitwise those of the untraced sweep; ``dump_trace`` writes the
-spans as Chrome trace JSON. Tracing off, each span is one shared no-op
-object, or a bare ``torch.profiler`` scope while a profiler records.
+:mod:`repro_torch.kernels.ops`). A resident compile sets the global
+registry's gauge ``ec.walked_slot_share.mode<d>`` per mode: the share of
+the placed slots that the EC's item kernel walks. With the span tracer
+enabled (``runtime.trace=True`` or ``obs.trace.enable()``) they are
+recorded and each stage's span ends in a synchronise of its cards, with
+fits and factors bitwise those of the untraced sweep; ``dump_trace``
+writes the spans as Chrome trace JSON. Tracing off, each span is one
+shared no-op object, or a bare ``torch.profiler`` scope while a profiler
+records.
 """
 from __future__ import annotations
 
@@ -125,6 +128,19 @@ def validate_factor_payload(factors, lam, *, shape, rank,
     if ls != (rank,):
         raise ValueError(f"{source} lambda has shape {ls}, expected "
                          f"({rank},)")
+
+
+def _gauge_walked_slots(mode: int, block_p: int, shards) -> None:
+    """Set the global registry's ``ec.walked_slot_share.mode<mode>``: the
+    slots the EC's item kernel walks on the mode's placed shards
+    (``_build.walked_slots``, on host copies, so no device memory), over the
+    slots placed."""
+    walked = sum(_build.walked_slots(dev.values.cpu(),
+                                     dev.block_to_tile.cpu(), block_p)
+                 for dev in shards)
+    placed = sum(dev.values.numel() for dev in shards)
+    obs.get_registry().set_gauge(f"ec.walked_slot_share.mode{mode}",
+                                 walked / placed)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -212,7 +228,8 @@ class CPSolver:
                 plan, mesh, exchange_spec=self.exchange_spec,
                 **self._kernel_kw)
             for d in range(plan.nmodes):  # placed now, as compile promises
-                self.streamer.get(d)
+                _gauge_walked_slots(d, plan.modes[d].block_p,
+                                    self.streamer.get(d))
         self.rebalancer = None
         if config.schedule.telemetry_enabled:
             sched = config.schedule

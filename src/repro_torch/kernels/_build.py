@@ -17,7 +17,7 @@ before launching, the argument checks, and the index bookkeeping that
 splits the blocks among warps: :func:`tile_chunks` cuts each run of
 consecutive blocks of one output tile (:func:`tile_runs`) into work items
 of at most :data:`CHUNK_BLOCKS` blocks, one warp each, for all three
-kernels.
+kernels; :func:`walked_slots` counts the slots those items walk.
 """
 from __future__ import annotations
 
@@ -37,7 +37,8 @@ from repro_torch.obs import trace as obs_trace
 __all__ = ["SOURCES", "SMEM_LIMIT", "MAX_NUM_BUFFERS", "LAUNCHES",
            "reset_launch_counts", "build", "kernel_function", "check",
            "check_blocking", "require", "item_buffers",
-           "tile_runs", "tile_chunks", "TileChunks", "CHUNK_BLOCKS",
+           "tile_runs", "tile_chunks", "TileChunks", "walked_slots",
+           "CHUNK_BLOCKS",
            "STAGE_SLOTS", "ITEM_WARPS", "MAX_ITEM_RANK",
            "variant_smem_bytes", "copy_width", "launch"]
 
@@ -339,6 +340,40 @@ def tile_chunks(block_to_tile: torch.Tensor,
                                  include_self=True)
     return TileChunks(item_starts, item_part,
                       split[:, :n_split].contiguous(), n_parts)
+
+
+def walked_slots(values: torch.Tensor, block_to_tile: torch.Tensor,
+                 block_p: int) -> int:
+    """The slots the EC item kernel walks on one shard, by the kernel's own
+    rule (``csrc/ec_common.cuh``): each work item (:func:`tile_chunks`)
+    walks its stages of :data:`STAGE_SLOTS` slots up to and including the
+    stage that holds its last slot whose value is not 0, and none after it;
+    an item whose values are all 0 walks none. So the count is a multiple of
+    :data:`STAGE_SLOTS` wherever ``block_p`` is. Pad slots, value 0, lie at
+    the end of a tile's run; a zero value before a run's last nonzero is
+    walked. Plain torch ops on the tensors' device, ending in a host read:
+    for placement, not for a sweep."""
+    nb = block_to_tile.numel()
+    if nb == 0:
+        return 0
+    nz = values[:nb * block_p].reshape(nb, block_p) != 0
+    # each block's last slot that is not 0, and the slots up to the end of
+    # its stage
+    last = block_p - 1 - nz.flip(1).to(torch.uint8).argmax(1)
+    upto = torch.clamp((last // STAGE_SLOTS + 1) * STAGE_SLOTS, max=block_p)
+    starts = tile_chunks(block_to_tile).item_starts.long()
+    first = torch.zeros(nb + 1, dtype=torch.int64, device=nz.device)
+    first[starts] = 1
+    item_id = torch.cumsum(first[:nb], 0) - 1
+    blocks = torch.arange(nb, device=nz.device)
+    # were the item to end in this block: its earlier blocks in full, then
+    # this block's stages
+    walk = torch.where(nz.any(1), (blocks - starts[item_id]) * block_p + upto,
+                       0)
+    per_item = torch.zeros(nb, dtype=torch.int64, device=nz.device)
+    per_item.scatter_reduce_(0, item_id, walk, reduce="amax",
+                             include_self=True)
+    return int(per_item.sum())
 
 
 def variant_smem_bytes(variant: str, *, tile: int, rank: int,

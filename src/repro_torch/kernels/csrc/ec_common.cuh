@@ -17,13 +17,26 @@
 // not depend on the card.
 //
 // Inside an item (ec_item_kernel) the warp walks its slots in stages of
-// EC_STAGE_SLOTS. A ring of `nbuf` stages in shared memory is filled with
-// cp.async: each slot's nin input rows (16 bytes a thread where R % 4 == 0),
-// its value, and the variant's per-stage metadata. Where the rows come from
-// is fixed at compile time: rows of the factor matrices named by
-// input_indices (ec_sorted, ec_fused; a stage's indices are loaded one step
-// before its rows are requested, so no row load waits on its index at use
-// time), or row `slot` of the (nnz, R) arrays gathered before the kernel
+// EC_STAGE_SLOTS, up to the stage that holds the item's last slot whose value
+// is not 0 and no further. Pad slots (value 0) lie at the end of a tile's run
+// (core/partition.py::block_device_rows), so only a run's last item holds
+// them: its last block's padded tail, and on a shard padded to the mesh's
+// longest, whole trailing blocks. The warp finds that slot from the values
+// themselves (ec_last_nonzero, read beside stage 0's indices) and issues no
+// copy past it. A skipped slot adds 0 * rows = +-0 to a row's sum, which
+// changes no finite sum (a -0 sum may end as -0 instead of +0), so the bits
+// are those of the plain versions, which sum every slot, wherever the factors
+// are finite. Not so where a pad slot's input row holds an inf or a NaN: the
+// plain versions carry its 0 * inf = NaN into the pads' row, the kernels no
+// longer do. Mid-run zero values are walked as any other slot.
+//
+// A ring of `nbuf` stages in shared memory is filled with cp.async: each
+// slot's nin input rows (16 bytes a thread where R % 4 == 0), its value, and
+// the variant's per-stage metadata. Where the rows come from is fixed at
+// compile time: rows of the factor matrices named by input_indices
+// (ec_sorted, ec_fused; a stage's indices are loaded one step before its
+// rows are requested, so no row load waits on its index at use time), or
+// row `slot` of the (nnz, R) arrays gathered before the kernel
 // (ec_blocked; a stage is then one contiguous stretch of each array). Lanes
 // span the R columns; the warp sums each row in slot order in registers,
 // moving a row's running sum to the shared (tile, R) accumulator only when
@@ -118,6 +131,30 @@ __host__ __device__ __forceinline__ int ec_warp_words(int nin, int R,
          ec_words16(tile * R);
 }
 
+// The highest slot of kernel block `blk` whose value is not 0 (a NaN counts
+// as not 0), or -1 where every value is 0; the same on every lane. Each lane
+// reads block_p / 32 values, as 16-byte loads where the block's values are
+// 16-byte aligned.
+__device__ __forceinline__ int ec_last_nonzero(const float* values,
+                                               int64_t blk, int block_p,
+                                               int lane) {
+  const float* v = values + blk * block_p;
+  int last = -1;
+  if (block_p % 4 == 0 && (reinterpret_cast<uintptr_t>(v) & 15) == 0) {
+    for (int p = lane * 4; p < block_p; p += 128) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(v + p));
+      if (x.x != 0.0f) last = p;
+      if (x.y != 0.0f) last = p + 1;
+      if (x.z != 0.0f) last = p + 2;
+      if (x.w != 0.0f) last = p + 3;
+    }
+  } else {
+    for (int p = lane; p < block_p; p += 32)
+      if (__ldg(v + p) != 0.0f) last = p;
+  }
+  return __reduce_max_sync(EC_FULL_MASK, last);
+}
+
 // The item kernel. `Meta` supplies the variant's part:
 //   static int words(int tile, int nbuf): its shared-memory words per warp;
 //   void issue(int* m, int u, int blk, int q, int ns, int64_t s0, int lane,
@@ -150,11 +187,11 @@ __global__ void __launch_bounds__(EC_ITEM_THREADS)
                 ec_words16(Meta::words(tile, nbuf));
 
   const int spb = (block_p + EC_STAGE_SLOTS - 1) / EC_STAGE_SLOTS;
-  const int nst = (b1 - b0) * spb;
+  // Stages to walk: every stage of the item until the value read below
+  // ends the walk at the last slot whose value is not 0.
+  int nst = (b1 - b0) * spb;
   const int stage_rows = EC_STAGE_SLOTS * NIN * R;
   const int cpr = R / VEC;  // copies per factor row
-
-  for (int i = lane; i < tile * R; i += 32) tacc[i] = 0.0f;
 
   // Lane l < ns * NIN holds index l of the stage: slot l / NIN, operand
   // l % NIN, as input_indices is laid out. Pre-gathered rows need none.
@@ -207,7 +244,17 @@ __global__ void __launch_bounds__(EC_ITEM_THREADS)
     ec_cp_async_commit();
   };
 
+  // Stage 0's indices and the item's last block's values are in flight
+  // together, so finding the end adds no load ahead of the first gather. A
+  // last block of pads only (a shard's trailing pad blocks) steps back.
   load_idx(0);
+  for (int i = lane; i < tile * R; i += 32) tacc[i] = 0.0f;
+  int blk_end = b1 - 1;
+  int last = ec_last_nonzero(a.values, blk_end, block_p, lane);
+  while (last < 0 && blk_end > b0)
+    last = ec_last_nonzero(a.values, --blk_end, block_p, lane);
+  nst = last < 0 ? 0 : (blk_end - b0) * spb + last / EC_STAGE_SLOTS + 1;
+
   for (int u = 0; u < nbuf - 1; ++u) {
     issue(u);
     load_idx(u + 1);

@@ -13,7 +13,13 @@ into its output row. Order of the sums: a tile's run of at most
 slot-order ``ref``); a longer run sums each chunk of that many blocks in
 slot order and the chunks in chunk order (``ref.ec_rows_chunked``). The
 result is bitwise that of :func:`ec_sorted_plain` on the CPU and on the
-card (whose ``index_add_`` runs in slot order, ``ref.slot_order_index_add``).
+card (whose ``index_add_`` runs in slot order, ``ref.slot_order_index_add``)
+wherever the factors are finite. The kernel ends each work item's walk after
+its last slot whose value is not 0 (``_build.walked_slots`` counts the
+slots it walks), so it skips the pad slots at a run's end, which add
+``0·rows = ±0``; the plain version sums them. So an inf or a NaN in a pad
+slot's input row (row 0 of each input factor) reaches the pads' output row
+through ``0·inf`` in the plain version only.
 
 What bounds it on the H100. Bytes: per slot it reads a value, ``nin``
 indices and ``nin`` factor rows of ``R`` f32, and does ``(nin + 1)·R``
@@ -29,7 +35,11 @@ one warp each, so a hot tile's run is spread over the SMs; a split run's
 items write ``(tile, R)`` partials that ``ec_combine`` adds in item order.
 The warp fills a ``cp.async`` ring of ``num_buffers`` stages with its
 slots' factor rows, values and block descriptors, its indices loaded one
-step ahead, and sums each segment in registers, one lane per column.
+step ahead, and sums each segment in registers, one lane per column. It
+reads its last block's values beside its first indices, finds its last
+nonzero value with a warp reduction, and walks no stage after it: under a
+Zipf skew most tiles hold a handful of nonzeros in a block of ``block_p``
+slots.
 ``num_buffers`` changes no bit. What it gives up: strict slot order on runs
 longer than ``CHUNK_BLOCKS`` blocks, for the fixed two-level order.
 """

@@ -190,6 +190,78 @@ LONG_RUN = {
 }
 
 
+# -- items that end in pad stages: the item kernel stops at the last slot
+# whose value is not 0 ----------------------------------------------------
+
+def short_tiles_case(layout="sorted"):
+    """Every tile holds 1 to 7 nonzeros, so nearly every work item is one
+    block of one partial stage and pad stages after it."""
+    rng = np.random.default_rng(12)
+    counts = np.arange(40) % 7 + 1
+    rows = np.repeat(np.arange(40) * 8, counts) + rng.integers(
+        0, 8, counts.sum())
+    nnz = rows.size
+    ind = np.stack([rng.integers(0, 9, nnz), rows, rng.integers(0, 11, nnz)],
+                   axis=1)
+    t = SparseTensor(ind.astype(np.int32),
+                     rng.normal(size=nnz).astype(np.float32), (9, 320, 11))
+    part, _, _ = partition_mode(t, 1, 1, tile=8, block_p=128, layout=layout)
+    assert (np.bincount(part.block_to_tile[0]) <= 1).all()
+    return part, _factors(t.shape, 13), 1, 0
+
+
+def mid_run_zero_case():
+    """A fifth of the entries hold the value 0.0: zeros before a run's last
+    nonzero are walked, zeros at a run's end are skipped with its pads, on
+    runs of one block and on a run split into items."""
+    rng = np.random.default_rng(14)
+    shape = (9, 40, 11)
+    nnz_hot, nnz_light = 300, 200
+    ind = np.stack([rng.integers(0, s, nnz_hot + nnz_light)
+                    for s in shape], axis=1)
+    ind[:nnz_hot, 1] = 5
+    vals = rng.normal(size=nnz_hot + nnz_light).astype(np.float32)
+    vals[rng.random(vals.size) < 0.2] = 0.0
+    t = SparseTensor(ind.astype(np.int32), vals, shape)
+    part, _, _ = partition_mode(t, 1, 1, tile=4, block_p=16, layout="sorted")
+    blocks = part.values[0].reshape(-1, part.block_p)
+    nz = blocks != 0
+    # a zero before a nonzero of its block: mid-run
+    assert (~nz[:, :-1] & nz[:, 1:]).any()
+    assert longest_run(part.block_to_tile[0]) > 16
+    return part, _factors(shape, 15), 1, 0
+
+
+def trailing_pad_step_back_case():
+    """A light shard of short tiles padded to the heavy one's blocks: its
+    last item is its last tile's one partial block and the trailing pad
+    blocks after it, so the kernel steps back over whole pad blocks."""
+    rng = np.random.default_rng(16)
+    nnz_heavy, nnz_light = 160, 9
+    nnz = nnz_heavy + nnz_light
+    ind = np.zeros((nnz, 3), np.int64)
+    ind[nnz_heavy:, 1] = [3, 3, 4, 6, 6, 6, 7, 7, 7]
+    ind[:, 0] = rng.integers(0, 7, nnz)
+    ind[:, 2] = rng.integers(0, 16, nnz)
+    t = SparseTensor(ind.astype(np.int32),
+                     rng.normal(size=nnz).astype(np.float32), (7, 8, 16))
+    part, _, _ = partition_mode(t, 1, 2, strategy="amped_cdf", replication=1,
+                                tile=2, block_p=16, layout="sorted")
+    dev = int(np.argmin(part.nnz_true))
+    pad = (part.values[dev].reshape(-1, part.block_p) == 0).all(axis=1)
+    assert part.nnz_true[dev] > 0 and pad[-7:].all()
+    assert longest_run(part.block_to_tile[dev]) <= 16
+    return part, _factors(t.shape, 17), 1, dev
+
+
+PAD_STAGES = {
+    "short_tiles": short_tiles_case,
+    "short_tiles_blocked_layout": lambda: short_tiles_case("blocked"),
+    "mid_run_zero_values": mid_run_zero_case,
+    "trailing_pad_blocks_step_back": trailing_pad_step_back_case,
+}
+
+
 def shard_arrays(part, dev=0):
     """One device's EC inputs as numpy arrays, with the sorted variant's
     segment descriptors."""

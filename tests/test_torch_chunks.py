@@ -15,6 +15,11 @@ on shards with such runs:
   (its one-hot product's own tolerance, test_torch_kernels.py);
 * the same bits for every ``num_buffers``, and for ``sorted``, ``fused``
   and ``blocked`` alike.
+
+Also the slots the item kernel walks (``_build.walked_slots``): up to the
+stage of each item's last nonzero value, so on every shard Σ over tiles of
+``ceil(count / STAGE_SLOTS) · STAGE_SLOTS``; and the per-mode gauge
+``api.compile`` sets from it.
 """
 import os
 
@@ -26,8 +31,13 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_cases import LONG_RUN, longest_run, shard_arrays  # noqa: E402
+from _torch_cases import (LONG_RUN, PAD_STAGES, longest_run,  # noqa: E402
+                          partitioned_case, shard_arrays)
 from repro.kernels import ops as j_ops  # noqa: E402
+import repro_torch.api as api  # noqa: E402
+from repro_torch import obs  # noqa: E402
+from repro_torch.core.coo import random_sparse  # noqa: E402
+from repro_torch.core.partition import block_device_rows  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels.ref import ec_rows_chunked, ec_rows_ref  # noqa: E402
 
@@ -258,3 +268,129 @@ def test_chunked_equals_slot_order_on_short_runs():
     assert not torch.equal(split, slot_order)
     torch.testing.assert_close(split, slot_order, rtol=TOL,
                                atol=TOL * float(slot_order.abs().max()))
+
+
+# -- the slots the item kernel walks -----------------------------------------
+
+S = _build.STAGE_SLOTS
+
+
+def _stage_slots(tile_counts):
+    """Σ over tiles of ceil(count / STAGE_SLOTS) · STAGE_SLOTS."""
+    tc = np.asarray(tile_counts, np.int64)
+    return int((-(-tc // S) * S).sum())
+
+
+def _walked(values, b2t, block_p):
+    return _build.walked_slots(torch.from_numpy(values),
+                               torch.from_numpy(b2t), block_p)
+
+
+def _tile_counts(part, dev):
+    """Each run's entries on a shard whose every entry is nonzero: the
+    nonzero values of its blocks, which must add up to ``nnz_true``."""
+    nz = (part.values[dev].reshape(-1, part.block_p) != 0).sum(1)
+    tc = np.bincount(part.block_to_tile[dev], weights=nz)
+    assert tc.sum() == part.nnz_true[dev]
+    return tc
+
+
+@pytest.mark.parametrize("layout", ["sorted", "blocked"])
+@pytest.mark.parametrize("nmodes,num_devices,replication,block_p,seed", [
+    (3, 1, 1, 128, 0), (3, 1, 1, 16, 1), (4, 2, 1, 16, 2), (3, 4, 2, 16, 3),
+    (5, 4, 1, 32, 4)])
+def test_walked_slots_on_partitioned_plans(layout, nmodes, num_devices,
+                                           replication, block_p, seed):
+    """Every shard of a zipf plan, a mesh's trailing pad blocks and split
+    runs among them: the stages that hold a tile's entries, no more."""
+    part, _ = partitioned_case(nmodes, 8, seed=seed, nnz=800,
+                               num_devices=num_devices,
+                               replication=replication, block_p=block_p,
+                               layout=layout)
+    for dev in range(part.num_devices):
+        want = _stage_slots(_tile_counts(part, dev))
+        got = _walked(part.values[dev], part.block_to_tile[dev], block_p)
+        assert got == want and got % S == 0
+        assert got <= part.values[dev].size
+
+
+def _shard(tile_counts, *, layout, tile=4, block_p=16, pad_blocks=0,
+           seed=0):
+    """One device's blocked values and ``block_to_tile`` from
+    ``block_device_rows`` with ``tile_counts[i]`` entries in tile ``i``
+    (nonzero values), then ``pad_blocks`` trailing pad blocks on the last
+    tile, as ``partition_mode`` pads a shard to the mesh's longest."""
+    rng = np.random.default_rng(seed)
+    tiles = np.repeat(np.arange(len(tile_counts)), tile_counts)
+    lrow = np.sort(tiles * tile + rng.integers(0, tile, tiles.size))
+    vals = rng.uniform(0.5, 1.5, lrow.size).astype(np.float32)
+    inds = rng.integers(0, 5, (lrow.size, 2))
+    _, v, _, b2t = block_device_rows(lrow, vals, inds,
+                                     n_tiles=len(tile_counts), tile=tile,
+                                     block_p=block_p, layout=layout)
+    v = np.concatenate([v, np.zeros(pad_blocks * block_p, np.float32)])
+    b2t = np.concatenate([b2t, np.full(pad_blocks, b2t[-1])])
+    return v, b2t.astype(np.int32)
+
+
+@pytest.mark.parametrize("layout", ["sorted", "blocked"])
+@pytest.mark.parametrize("case,counts,pad_blocks", [
+    ("one_to_seven_a_tile", [1, 2, 3, 4, 5, 6, 7, 0, 3], 0),
+    ("last_block_full", [16, 32, 5, 48], 0),
+    ("trailing_pad_blocks", [3, 20, 9], 5),
+    ("trailing_pad_blocks_split_the_last_run", [3, 20, 9], 20),
+    ("split_run", [7, 16 * 16 + 3, 2], 0),
+    ("split_run_full_items", [5, 16 * 16 * 2, 1], 0),
+])
+def test_walked_slots_tile_counts(layout, case, counts, pad_blocks):
+    v, b2t = _shard(counts, layout=layout, pad_blocks=pad_blocks)
+    if "split" in case:
+        assert longest_run(b2t) > C
+    assert _walked(v, b2t, 16) == _stage_slots(counts)
+
+
+@pytest.mark.parametrize("layout", ["sorted", "blocked"])
+def test_walked_slots_count_a_zero_value_mid_run(layout):
+    """A real entry of value 0.0 before its run's last nonzero is walked,
+    a whole stage of them too; at the run's end it is skipped like a
+    pad."""
+    counts = [12, 41, 6]
+    v, b2t = _shard(counts, layout=layout)
+    v[16 + 3] = 0.0                # tile 1, first block
+    v[16 + 16 + 8:16 + 16 + 16] = 0.0  # tile 1, a whole stage mid-run
+    assert _walked(v, b2t, 16) == _stage_slots(counts)
+    v[16 + 40] = 0.0               # tile 1's last entry, alone in its stage
+    assert _walked(v, b2t, 16) == _stage_slots(counts) - S
+
+
+@pytest.mark.parametrize("case", sorted(
+    set(PAD_STAGES) - {"mid_run_zero_values"}) + sorted(LONG_RUN))
+def test_walked_slots_on_the_card_tests_shards(case):
+    """The shards the card tests hold the kernels on, whose every entry is
+    nonzero: the stages of each tile's entries."""
+    part, _, _, dev = {**PAD_STAGES, **LONG_RUN}[case]()
+    got = _walked(part.values[dev], part.block_to_tile[dev], part.block_p)
+    assert got == _stage_slots(_tile_counts(part, dev))
+
+
+def test_compile_sets_the_walked_slot_share_of_every_mode():
+    """``api.compile`` sets ``ec.walked_slot_share.mode<d>`` for every
+    mode: the walked slots of its shards over the slots placed."""
+    t = random_sparse((30, 20, 12, 9), 600, seed=5, distribution="zipf")
+    cfg = api.preset("paper", {
+        "rank": 4, "runtime.num_devices": 2, "runtime.seed": 0,
+        "kernel.variant": "sorted", "kernel.autotune": False,
+        "partition.layout": "sorted"})
+    plan = api.plan(t, cfg, device="cpu")
+    reg = obs.get_registry()
+    names = [f"ec.walked_slot_share.mode{d}" for d in range(t.nmodes)]
+    for name in names:
+        reg.set_gauge(name, None)
+    with api.compile(plan, cfg, device="cpu"):
+        for name, part in zip(names, plan.modes):
+            walked = sum(_walked(part.values[k], part.block_to_tile[k],
+                                 part.block_p)
+                         for k in range(part.num_devices))
+            share = reg.gauge(name)
+            assert share == walked / part.values.size
+            assert 0 < share < 1

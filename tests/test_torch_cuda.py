@@ -18,8 +18,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from _torch_cases import (BLOCKED_PROPERTY, BLOCKED_SHAPES,  # noqa: E402
-                          DEGENERATE_SORTED, LONG_RUN, blocked_case,
-                          partitioned_case, shard_arrays, skewed_tensor)
+                          DEGENERATE_SORTED, LONG_RUN, PAD_STAGES,
+                          blocked_case, partitioned_case, shard_arrays,
+                          skewed_tensor)
 import repro_torch.api as api  # noqa: E402
 from repro_torch.comm import ExchangeSpec  # noqa: E402
 from repro_torch.core import mttkrp as dm  # noqa: E402
@@ -107,13 +108,15 @@ def test_kernel_degenerate_shards(cuda, variant, case):
 @pytest.mark.parametrize("variant,num_buffers", [
     ("sorted", 2), ("sorted", 3), ("sorted", 4), ("fused", 2), ("fused", 3),
     ("fused", 4), ("blocked", RING_DEPTH)])
-@pytest.mark.parametrize("case", sorted(LONG_RUN))
+@pytest.mark.parametrize("case", sorted(LONG_RUN) + sorted(PAD_STAGES))
 def test_kernel_long_runs(cuda, case, variant, num_buffers):
     """Runs of more than CHUNK_BLOCKS blocks, split into work items and
-    combined: bitwise equal to the plain version on the CPU and on the card
+    combined, and items whose walk ends before their pad stages (tiles of 1
+    to 7 nonzeros, zero values mid-run, trailing pad blocks to step back
+    over): bitwise equal to the plain version on the CPU and on the card
     (whose ``index_add_`` sums in slot order unasked), for every ring
     depth."""
-    part, factors, mode, dev = LONG_RUN[case]()
+    part, factors, mode, dev = {**LONG_RUN, **PAD_STAGES}[case]()
     kw = dict(dev=dev, mode=mode, num_buffers=num_buffers)
     _assert_kernel_equals_plain(part, factors, variant, cuda, **kw)
     got = _ec(part, factors, variant, cuda, **kw)
