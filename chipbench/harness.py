@@ -10,7 +10,8 @@ the check, as ``chipbench/run.py`` drives it.
    its fit (the body of ``CPSolver.run`` without its stop). A sweep's time
    runs from one fit read to the next.
 3. With ``trace``: sweeps under ``torch.profiler``, untraced and then with
-   the port's span tracer on; the per-layer readers read them.
+   the port's span tracer on, and the program's registry just before and
+   just after the untraced ones; the per-layer readers read them.
 4. The check (:mod:`chipbench.check`): the state that enters the window's
    first sweep and the one it leaves are read back (``CPSolver.result()``,
    outside the timed intervals), and so is the last state of the run.
@@ -73,6 +74,13 @@ class Readings:
     untraced: list        # profile.Event of the untraced profiled sweeps
     traced: list          # profile.Event of the sweeps traced by the port
     traced_sweeps: int
+    # obs.get_registry().report() just before and just after the untraced
+    # profiled sweeps (counters, gauges, latency and every provider's
+    # section, the solver's among them): the gauges set since the process
+    # began, ``api.compile``'s too, and each counter's rise over those
+    # sweeps. Both are taken before the traced sweeps reset the registry.
+    registry_start: dict
+    registry: dict
 
 
 def _devices(cell: spec.Cell, device: str) -> tuple[list, list]:
@@ -305,7 +313,11 @@ def _traced(traffic, sync, step, cuda: bool, **facts) -> Readings:
     from repro_torch import obs
     n_plain = int(traffic["profiled_sweeps"])
     n_traced = int(traffic["traced_sweeps"])
+    # No provider of the registry launches work or synchronises a card
+    # (the solver's ``exchange`` section is the model's, measure=False).
+    registry_start = obs.get_registry().report()
     untraced = profile.capture(step, n_plain, sync, cuda=cuda)
+    registry = obs.get_registry().report()
     obs.reset()
     obs.trace.enable()
     try:
@@ -313,4 +325,5 @@ def _traced(traffic, sync, step, cuda: bool, **facts) -> Readings:
     finally:
         obs.reset()
     return Readings(untraced=untraced, traced=traced,
-                    traced_sweeps=n_traced, **facts)
+                    traced_sweeps=n_traced, registry_start=registry_start,
+                    registry=registry, **facts)

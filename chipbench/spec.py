@@ -2,7 +2,9 @@
 
 - ``BENCHMARK.json`` lists the configurations, cells and metrics;
 - ``chipbench/configs/<config>.json``: the deployment, its logical
-  devices among them (the file that ``BENCHMARK.json`` names);
+  devices among them (the file that ``BENCHMARK.json`` names), and under
+  ``tests`` the cuts of ``scale`` and ``mode_scale`` that the CPU tests
+  run it at (a run never reads them);
 - ``chipbench/workloads/<cell>.json``: the cell's description and the
   limits of its comparison;
 - ``chipbench/traffic/<traffic>.json``: the loop the window runs;
@@ -80,10 +82,18 @@ def metric_reader(name: str, root: Path = ROOT):
     return mod.read
 
 
+def _states_tests_size(conf: dict) -> bool:
+    tests = conf.get("tests")
+    return isinstance(tests, dict) and all(
+        isinstance(tests.get(k), (int, float)) and 0 < tests[k] <= 1
+        for k in ("scale", "mode_scale"))
+
+
 def problems(bench: dict, root: Path = ROOT) -> list[str]:
     """What in ``bench`` breaks the benchmark's own rules: names, units,
-    one file per configuration, cell and metric, and at most a quarter of
-    the cells (rounded down, at least one) on four chips."""
+    one file per configuration, cell and metric, a tests size in every
+    configuration, and at most a quarter of the cells (rounded down, at
+    least one) on four chips."""
     out = []
     base = Path(root) / "chipbench"
     metrics = bench["end_to_end"] + bench["per_layer"]
@@ -111,8 +121,12 @@ def problems(bench: dict, root: Path = ROOT) -> list[str]:
     if len(set(files)) != len(files):
         out.append("two configurations share a file")
     for c in bench["configs"]:
-        if not (Path(root) / c["file"]).is_file():
+        path = Path(root) / c["file"]
+        if not path.is_file():
             out.append(f"no file for configuration {c['name']}")
+        elif not _states_tests_size(json.loads(path.read_text())):
+            out.append(f"configuration {c['name']} states no tests size: "
+                       f"tests.scale and tests.mode_scale in (0, 1]")
         for k in c["reduced"]:
             if not NAME_RE.match(k):
                 out.append(f"reduced key {k!r}")

@@ -14,9 +14,9 @@ for p in (str(ROOT / "src"), str(ROOT)):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-# The tests' size: a few thousand nonzeros a cell, and limits for that
-# size (the cells' own limits are set on the card at the timed size).
-TINY_SCALE = {"amazon": 2e-5, "twitch": 1e-5}
+# The limits at the tests' size, a few thousand nonzeros a cell, which each
+# configuration states under ``tests`` (the cells' own limits are set on
+# the card at the timed size).
 TINY_LIMITS = {"factor_gap": 4e-4, "lam_gap": 8e-4, "fit_gap": 5e-5,
                "end_solve_gap": 1e-5}
 # A cell of four logical devices that the tests add beside the
@@ -24,16 +24,18 @@ TINY_LIMITS = {"factor_gap": 4e-4, "lam_gap": 8e-4, "fit_gap": 5e-5,
 FOUR = "amazon-r32.4dev"
 
 
-def make_tiny_root(dest: Path) -> Path:
-    """A copy of ``BENCHMARK.json`` and ``chipbench/`` with every
-    configuration cut to the tests' size, and the cell ``FOUR``."""
-    shutil.copy(ROOT / "BENCHMARK.json", dest / "BENCHMARK.json")
-    shutil.copytree(ROOT / "chipbench", dest / "chipbench",
+def make_tiny_root(dest: Path, src: Path = ROOT) -> Path:
+    """A copy of ``BENCHMARK.json`` and ``chipbench/`` of ``src`` with
+    every configuration cut to its own ``tests`` size, and the cell
+    ``FOUR``."""
+    shutil.copy(src / "BENCHMARK.json", dest / "BENCHMARK.json")
+    shutil.copytree(src / "chipbench", dest / "chipbench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     base = dest / "chipbench"
     for p in (base / "configs").glob("*.json"):
         c = json.loads(p.read_text())
-        c["scale"] = c["mode_scale"] = TINY_SCALE[c["dataset"]]
+        c["scale"] = c["tests"]["scale"]
+        c["mode_scale"] = c["tests"]["mode_scale"]
         p.write_text(json.dumps(c))
     for p in (base / "workloads").glob("*.json"):
         c = json.loads(p.read_text())

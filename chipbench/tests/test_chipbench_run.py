@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 from chipbench import check, harness, spec
-from chipbench.tests.conftest import FOUR
+from chipbench.tests.conftest import FOUR, ROOT, make_tiny_root
 from repro_torch import comm
 from repro_torch.core import als as als_mod
 from repro_torch.kernels import ops as kops
@@ -127,6 +128,60 @@ def test_four_devices_are_correct_and_the_exchange_left_out_is_not(
     monkeypatch.setattr(comm, "all_gather_axes",
                         _no_exchange(comm.all_gather_axes))
     assert not _run(tiny_root, FOUR)["correct"]
+
+
+def test_a_configuration_of_a_new_dataset_runs_at_its_own_tests_size(
+        tmp_path):
+    """A uniform three-mode profile with a mode of 46 rows (the paper's
+    Patents, 46 x 239,172 x 239,172), added as a configuration file, a
+    cell file and their entries alone: the tests' copy cuts it to the
+    size its file states, and it runs correct while the control does not.
+    At that size its 46-row mode is one tile of 8 rows, every nonzero in
+    one run of work items that write partials."""
+    src = tmp_path / "src"
+    src.mkdir()
+    shutil.copy(ROOT / "BENCHMARK.json", src / "BENCHMARK.json")
+    shutil.copytree(ROOT / "chipbench", src / "chipbench",
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    base = src / "chipbench"
+    conf = json.loads((base / "configs" / "amazon-r32.json").read_text())
+    del conf["zipf_a"]
+    conf.update(name="uniform46-r32", dataset="patents",
+                shape=[46, 239_172, 239_172], nnz=3_596_640_708,
+                distribution="uniform", scale=1e-2, mode_scale=1.0,
+                tests={"scale": 1e-6, "mode_scale": 1e-2})
+    (base / "configs" / "uniform46-r32.json").write_text(json.dumps(conf))
+    (base / "workloads" / "uniform46-r32.1chip.json").write_text(json.dumps(
+        {"why": "uniform draws",
+         "limits": dict.fromkeys(check.NAMES, 1e-3)}))
+    bench = json.loads((src / "BENCHMARK.json").read_text())
+    bench["configs"].append({
+        "name": "uniform46-r32", "source": "tests",
+        "file": "chipbench/configs/uniform46-r32.json",
+        "reduced": ["scale"], "why": "a dataset the tests have not seen"})
+    bench["workloads"].append({
+        "name": "uniform46-r32.1chip", "config": "uniform46-r32",
+        "traffic": "sweep_fit_each", "chips": 1, "why": "uniform draws"})
+    (src / "BENCHMARK.json").write_text(json.dumps(bench))
+    assert spec.problems(bench, src) == []
+    before = _repo_files()
+
+    tiny = tmp_path / "tiny"
+    tiny.mkdir()
+    make_tiny_root(tiny, src)
+    cell = spec.load_cell("uniform46-r32.1chip", tiny)
+    assert (cell.config["scale"], cell.config["mode_scale"]) == (1e-6, 1e-2)
+    r = _run(tiny, "uniform46-r32.1chip", control=True)
+    assert r["correct"] and r["failed"] == 0 and r["attempted"] > 3
+    limits = {k: c["limit"] for k, c in r["checks"].items()}
+    assert not check.judge(r["control"], limits)
+    assert _repo_files() == before
+
+
+def _repo_files() -> dict:
+    paths = [ROOT / "BENCHMARK.json", *(ROOT / "chipbench").rglob("*")]
+    return {p: p.read_bytes() for p in paths
+            if p.is_file() and "__pycache__" not in p.parts}
 
 
 def test_the_command_fails_without_a_card(tmp_path):

@@ -28,7 +28,7 @@ def _readings(untraced=(), traced=(), traced_sweeps=2):
         plan_s=1.0, compile_s=1.0, placed_bytes=1, nnz=1, shape=(2, 2),
         rows_used=(2, 2), rank=1, num_devices=1, cards=1,
         untraced=list(untraced), traced=list(traced),
-        traced_sweeps=traced_sweeps)
+        traced_sweeps=traced_sweeps, registry_start={}, registry={})
 
 
 def _read(name, r):

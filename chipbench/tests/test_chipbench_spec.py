@@ -7,6 +7,8 @@ import json
 import shutil
 from pathlib import Path
 
+import pytest
+
 from chipbench import check, spec
 
 ROOT = spec.ROOT
@@ -96,6 +98,25 @@ def test_a_new_cell_file_is_picked_up_without_an_edit(tmp_path):
     assert spec.problems(bench, tmp_path) == []
     assert {p.name: p.read_bytes()
             for p in ROOT.glob("chipbench/*.py")} == before
+
+
+@pytest.mark.parametrize("tests", [None, {"scale": 1e-5},
+                                   {"scale": 0, "mode_scale": 1e-5},
+                                   {"scale": 1e-5, "mode_scale": 2.0}])
+def test_a_configuration_without_a_tests_size_is_named(tmp_path, tests):
+    shutil.copy(ROOT / "BENCHMARK.json", tmp_path / "BENCHMARK.json")
+    shutil.copytree(ROOT / "chipbench", tmp_path / "chipbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    name = BENCH["configs"][0]["name"]
+    path = tmp_path / BENCH["configs"][0]["file"]
+    conf = json.loads(path.read_text())
+    del conf["tests"]
+    if tests is not None:
+        conf["tests"] = tests
+    path.write_text(json.dumps(conf))
+    assert spec.problems(BENCH, tmp_path) == [
+        f"configuration {name} states no tests size: tests.scale and "
+        f"tests.mode_scale in (0, 1]"]
 
 
 def _imports(path: Path) -> set[str]:
