@@ -58,8 +58,12 @@ and :class:`~repro_torch.obs.EventLog` (``events``: ``sweep``,
 stages carry spans (``sweep`` ⊃ {``shards``, ``mode_update`` ⊃ {``ec``,
 ``exchange``, ``solve`` ⊃ ``eigh``}, ``fit``}; the EC's own stages in
 :mod:`repro_torch.kernels.ops`). A resident compile sets the global
-registry's gauge ``ec.walked_slot_share.mode<d>`` per mode: the share of
-the placed slots that the EC's item kernel walks. With the span tracer
+registry's gauges per mode: ``ec.walked_slot_share.mode<d>``, the share of
+the placed slots that the EC's item kernel walks;
+``ec.split_slot_share.mode<d>``, the share of the placed slots in tile runs
+of more than ``CHUNK_BLOCKS`` blocks, which the EC splits into work items
+that write partials for ``ec_combine`` to add; and ``ec.partials.mode<d>``,
+the number of those partials its launches write. With the span tracer
 enabled (``runtime.trace=True`` or ``obs.trace.enable()``) they are
 recorded and each stage's span ends in a synchronise of its cards, with
 fits and factors bitwise those of the untraced sweep; ``dump_trace``
@@ -130,17 +134,24 @@ def validate_factor_payload(factors, lam, *, shape, rank,
                          f"({rank},)")
 
 
-def _gauge_walked_slots(mode: int, block_p: int, shards) -> None:
-    """Set the global registry's ``ec.walked_slot_share.mode<mode>``: the
-    slots the EC's item kernel walks on the mode's placed shards
-    (``_build.walked_slots``, on host copies, so no device memory), over the
-    slots placed."""
-    walked = sum(_build.walked_slots(dev.values.cpu(),
-                                     dev.block_to_tile.cpu(), block_p)
-                 for dev in shards)
-    placed = sum(dev.values.numel() for dev in shards)
-    obs.get_registry().set_gauge(f"ec.walked_slot_share.mode{mode}",
-                                 walked / placed)
+def _gauge_slots(mode: int, block_p: int, shards) -> None:
+    """Set the global registry's gauges of the mode's placed shards, counted
+    on host copies (so no device memory): ``ec.walked_slot_share.mode<mode>``,
+    the slots the EC's item kernel walks (``_build.walked_slots``) over the
+    slots placed; ``ec.split_slot_share.mode<mode>``, the slots in runs the
+    EC splits into partials (``_build.split_slots``) over the slots placed;
+    and ``ec.partials.mode<mode>``, the partials its launches write."""
+    walked = split = partials = placed = 0
+    for dev in shards:
+        values, b2t = dev.values.cpu(), dev.block_to_tile.cpu()
+        walked += _build.walked_slots(values, b2t, block_p)
+        s, p = _build.split_slots(b2t, block_p)
+        split, partials = split + s, partials + p
+        placed += values.numel()
+    reg = obs.get_registry()
+    reg.set_gauge(f"ec.walked_slot_share.mode{mode}", walked / placed)
+    reg.set_gauge(f"ec.split_slot_share.mode{mode}", split / placed)
+    reg.set_gauge(f"ec.partials.mode{mode}", partials)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -228,8 +239,7 @@ class CPSolver:
                 plan, mesh, exchange_spec=self.exchange_spec,
                 **self._kernel_kw)
             for d in range(plan.nmodes):  # placed now, as compile promises
-                _gauge_walked_slots(d, plan.modes[d].block_p,
-                                    self.streamer.get(d))
+                _gauge_slots(d, plan.modes[d].block_p, self.streamer.get(d))
         self.rebalancer = None
         if config.schedule.telemetry_enabled:
             sched = config.schedule

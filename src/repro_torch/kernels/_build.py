@@ -17,7 +17,8 @@ before launching, the argument checks, and the index bookkeeping that
 splits the blocks among warps: :func:`tile_chunks` cuts each run of
 consecutive blocks of one output tile (:func:`tile_runs`) into work items
 of at most :data:`CHUNK_BLOCKS` blocks, one warp each, for all three
-kernels; :func:`walked_slots` counts the slots those items walk.
+kernels; :func:`walked_slots` counts the slots those items walk, and
+:func:`split_slots` the slots and partials of the runs they split.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ __all__ = ["SOURCES", "SMEM_LIMIT", "MAX_NUM_BUFFERS", "LAUNCHES",
            "reset_launch_counts", "build", "kernel_function", "check",
            "check_blocking", "require", "item_buffers",
            "tile_runs", "tile_chunks", "TileChunks", "walked_slots",
-           "CHUNK_BLOCKS",
+           "split_slots", "CHUNK_BLOCKS",
            "STAGE_SLOTS", "ITEM_WARPS", "MAX_ITEM_RANK",
            "variant_smem_bytes", "copy_width", "launch"]
 
@@ -374,6 +375,22 @@ def walked_slots(values: torch.Tensor, block_to_tile: torch.Tensor,
     per_item.scatter_reduce_(0, item_id, walk, reduce="amax",
                              include_self=True)
     return int(per_item.sum())
+
+
+def split_slots(block_to_tile: torch.Tensor,
+                block_p: int) -> tuple[int, int]:
+    """``(slots, partials)`` of the split path on one shard, by
+    :func:`tile_chunks`' own rule: the placed slots whose block lies in a
+    run of more than :data:`CHUNK_BLOCKS` blocks (pad slots included, as
+    the kernel's launch holds them), and the ``(tile, R)`` partials the
+    launch writes, one per work item of such a run (``TileChunks.n_parts``
+    is only their bound). Plain torch ops ending in a host read: for
+    placement, not for a sweep."""
+    c = tile_chunks(block_to_tile)
+    starts = c.item_starts.long()
+    parted = c.item_part >= 0
+    blocks = (starts[1:] - starts[:-1])[parted]
+    return int(blocks.sum()) * block_p, int(parted.sum())
 
 
 def variant_smem_bytes(variant: str, *, tile: int, rank: int,

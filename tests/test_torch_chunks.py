@@ -18,8 +18,9 @@ on shards with such runs:
 
 Also the slots the item kernel walks (``_build.walked_slots``): up to the
 stage of each item's last nonzero value, so on every shard Σ over tiles of
-``ceil(count / STAGE_SLOTS) · STAGE_SLOTS``; and the per-mode gauge
-``api.compile`` sets from it.
+``ceil(count / STAGE_SLOTS) · STAGE_SLOTS``; the slots and partials of the
+split path (``_build.split_slots``), against hand counts; and the per-mode
+gauges ``api.compile`` sets from them.
 """
 import os
 
@@ -341,12 +342,51 @@ def _shard(tile_counts, *, layout, tile=4, block_p=16, pad_blocks=0,
     ("trailing_pad_blocks_split_the_last_run", [3, 20, 9], 20),
     ("split_run", [7, 16 * 16 + 3, 2], 0),
     ("split_run_full_items", [5, 16 * 16 * 2, 1], 0),
+    ("run_at_chunk_blocks", [7, 16 * 16, 2], 0),
+    ("run_just_under_chunk_blocks", [7, 15 * 16, 2], 0),
+    ("run_just_over_chunk_blocks", [7, 16 * 16 + 1, 2], 0),
 ])
 def test_walked_slots_tile_counts(layout, case, counts, pad_blocks):
     v, b2t = _shard(counts, layout=layout, pad_blocks=pad_blocks)
     if "split" in case:
         assert longest_run(b2t) > C
     assert _walked(v, b2t, 16) == _stage_slots(counts)
+
+
+# (counts, pad_blocks, tile, split slots, partials) at block_p 16, so a
+# tile of n entries is a run of ceil(n / 16) blocks, split (into ceil(blocks
+# / 16) partials) past 16 blocks; trailing pad blocks join the last run.
+SPLIT_CASES = {
+    "one_to_seven_a_tile": ([1, 2, 3, 4, 5, 6, 7, 0, 3], 0, 4, 0, 0),
+    "trailing_pad_blocks": ([3, 20, 9], 5, 4, 0, 0),
+    # the last run: 1 block of entries and 20 pads, 21 blocks in 2 items
+    "trailing_pad_blocks_split_the_last_run": ([3, 20, 9], 20, 4,
+                                               21 * 16, 2),
+    "run_at_chunk_blocks": ([7, 16 * 16, 2], 0, 4, 0, 0),
+    "run_just_under_chunk_blocks": ([7, 15 * 16, 2], 0, 4, 0, 0),
+    "run_just_over_chunk_blocks": ([7, 16 * 16 + 1, 2], 0, 4, 17 * 16, 2),
+    "split_run_full_items": ([5, 16 * 16 * 2, 1], 0, 4, 32 * 16, 2),
+    # a 46-row mode at tile 8: 6 tiles, each one run of 28-39 blocks,
+    # split into 2 or 3 items: 3 + 3 + 3 + 3 + 3 + 2 partials
+    "six_tiles_of_a_46_row_mode": ([600, 550, 580, 620, 590, 440], 0, 8,
+                                   (38 + 35 + 37 + 39 + 37 + 28) * 16, 17),
+}
+
+
+@pytest.mark.parametrize("layout", ["sorted", "blocked"])
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_slots_tile_counts(layout, case):
+    """The slots of runs longer than CHUNK_BLOCKS and the partials their
+    items write, against hand counts; the walked slots of the same shard."""
+    counts, pad_blocks, tile, slots, partials = SPLIT_CASES[case]
+    v, b2t = _shard(counts, layout=layout, tile=tile, pad_blocks=pad_blocks)
+    assert _build.split_slots(torch.from_numpy(b2t), 16) == (slots, partials)
+    assert (slots > 0) == (longest_run(b2t) > C)
+    assert _walked(v, b2t, 16) == _stage_slots(counts)
+
+
+def test_split_slots_of_no_blocks():
+    assert _build.split_slots(torch.zeros(0, dtype=torch.int32), 128) == (0, 0)
 
 
 @pytest.mark.parametrize("layout", ["sorted", "blocked"])
@@ -394,3 +434,33 @@ def test_compile_sets_the_walked_slot_share_of_every_mode():
             share = reg.gauge(name)
             assert share == walked / part.values.size
             assert 0 < share < 1
+
+
+def test_compile_sets_the_split_path_gauges_of_every_mode():
+    """``api.compile`` sets ``ec.split_slot_share.mode<d>`` and
+    ``ec.partials.mode<d>`` for every mode: the slots of its shards in split
+    runs over the slots placed, and the partials those runs' items write.
+    The 46-row mode's tiles are each one long run on every device."""
+    t = random_sparse((46, 2000, 2000), 6000, seed=5)
+    cfg = api.preset("paper", {
+        "rank": 4, "runtime.num_devices": 2, "runtime.seed": 0,
+        "kernel.variant": "sorted", "kernel.autotune": False,
+        "partition.layout": "sorted", "partition.tile": 8,
+        "partition.block_p": 16})
+    plan = api.plan(t, cfg, device="cpu")
+    reg = obs.get_registry()
+    names = [(f"ec.split_slot_share.mode{d}", f"ec.partials.mode{d}")
+             for d in range(t.nmodes)]
+    for share, parts in names:
+        reg.set_gauge(share, None)
+        reg.set_gauge(parts, None)
+    with api.compile(plan, cfg, device="cpu"):
+        for (share, parts), part in zip(names, plan.modes):
+            counts = [_build.split_slots(torch.from_numpy(
+                part.block_to_tile[k]), part.block_p)
+                for k in range(part.num_devices)]
+            assert reg.gauge(share) == (sum(s for s, _ in counts)
+                                        / part.values.size)
+            assert reg.gauge(parts) == sum(p for _, p in counts)
+    assert reg.gauge(names[0][0]) == 1.0
+    assert reg.gauge(names[0][1]) >= 6 * 2
