@@ -41,6 +41,7 @@ import torch
 from repro_torch import comm
 from repro_torch.core.partition import (CPPlan, ModePartition,
                                         block_segment_descriptors)
+from repro_torch.kernels import _build
 from repro_torch.kernels import ops as kops
 
 __all__ = ["CPMesh", "cp_mesh", "DeviceArrays", "Placed", "place_mode",
@@ -160,9 +161,13 @@ class DeviceArrays:
     # (O(nblocks * tile)) and derived from local_rows at shard time.
     seg_starts: torch.Tensor     # (nblocks, tile + 2) int32
     seg_rows: torch.Tensor       # (nblocks, tile + 1) int32
+    # The EC's work items of block_to_tile, packed in one tensor
+    # (_build.pack_items); small (~8.75 B a block) and built at placement,
+    # so no launch of a sweep builds them.
+    items: torch.Tensor          # (_build.item_words(nblocks),) int32
 
     def tensors(self) -> tuple[torch.Tensor, ...]:
-        """The seven tensors themselves, in field order (not
+        """The eight tensors themselves, in field order (not
         ``dataclasses.astuple``, which deep-copies each one)."""
         return tuple(getattr(self, n) for n in _ARRAY_NAMES)
 
@@ -171,7 +176,7 @@ class DeviceArrays:
 
 
 _ARRAY_NAMES = ("indices", "values", "local_rows", "block_to_tile",
-                "tile_visited", "seg_starts", "seg_rows")
+                "tile_visited", "seg_starts", "seg_rows", "items")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,7 +206,7 @@ class Placed:
 
 def _place_device(host: Sequence[np.ndarray], device: torch.device,
                   stream=None) -> tuple[DeviceArrays, object]:
-    """One device's seven host arrays onto ``device``. With a side CUDA
+    """One device's eight host arrays onto ``device``. With a side CUDA
     ``stream``, each array is copied into a pinned host buffer and from
     there to the card on that stream, and an event is recorded after the
     last copy: the host does not wait for the transfer. Pinning that fails
@@ -222,28 +227,39 @@ def _place_device(host: Sequence[np.ndarray], device: torch.device,
     return DeviceArrays(*out), ev
 
 
+def _derived_host_arrays(rows: np.ndarray, b2t: np.ndarray, *, tile: int,
+                         block_p: int) -> tuple[np.ndarray, ...]:
+    """What placement derives from a shard's ``local_rows`` and
+    ``block_to_tile`` on the host: the sorted variant's segment descriptors
+    and the EC's packed work items (``_build.pack_items``, on CPU torch)."""
+    ss, sr = block_segment_descriptors(rows, tile=tile, block_p=block_p)
+    items = _build.pack_items(torch.tensor(np.asarray(b2t, np.int32)))
+    return ss, sr, items.numpy()
+
+
 def _device_host_arrays(part, k: int) -> tuple[np.ndarray, ...]:
-    """Device ``k``'s seven host arrays of ``part``: a lazy partition's
+    """Device ``k``'s eight host arrays of ``part``: a lazy partition's
     payload is materialized from its store here, one device at a time."""
     if getattr(part, "lazy", False):
         ind, val, rows = part.device_arrays(k)
     else:
         ind, val, rows = (part.indices[k], part.values[k],
                           part.local_rows[k])
-    ss, sr = block_segment_descriptors(rows, tile=part.tile,
-                                       block_p=part.block_p)
-    return (ind, val, rows, part.block_to_tile[k], part.tile_visited[k],
-            ss, sr)
+    b2t = part.block_to_tile[k]
+    return (ind, val, rows, b2t, part.tile_visited[k],
+            *_derived_host_arrays(rows, b2t, tile=part.tile,
+                                  block_p=part.block_p))
 
 
 def place_mode(part, mesh: CPMesh, streams=None) -> Placed:
     """Move one mode's host arrays onto the mesh, shard ``k`` onto logical
-    device ``k``, computing the sorted variant's segment descriptors on the
-    way (as the reference does, mttkrp.py:93-99). Out-of-core partitions
-    (``part.lazy``) never stack a host ``(m, nnz_max)`` array: each
-    device's slice is streamed from the store and placed before the next
-    one is read. ``streams`` maps a card index to its side copy stream
-    (see :func:`_place_device`); ``None`` copies synchronously."""
+    device ``k``, computing the sorted variant's segment descriptors (as
+    the reference does, mttkrp.py:93-99) and the EC's work items on the
+    way. Out-of-core partitions (``part.lazy``) never stack a host ``(m,
+    nnz_max)`` array: each device's slice is streamed from the store and
+    placed before the next one is read. ``streams`` maps a card index to
+    its side copy stream (see :func:`_place_device`); ``None`` copies
+    synchronously."""
     _check_mesh(part, mesh)
     arrays, ready = [], []
     for k, device in enumerate(mesh.devices):
@@ -285,7 +301,8 @@ class MTTKRPFn:
             [f[k] for f in factors], mode=p.mode, num_rows=p.rows_max,
             tile=p.tile, block_p=p.block_p, tile_mask=dev.tile_visited,
             seg_starts=dev.seg_starts, seg_rows=dev.seg_rows,
-            **self.kernel_kw) for k, dev in enumerate(dev_arrays)]
+            items=dev.items, **self.kernel_kw)
+            for k, dev in enumerate(dev_arrays)]
 
     def exchange(self, partials: Sequence[torch.Tensor]
                  ) -> list[torch.Tensor]:
@@ -339,9 +356,10 @@ def shard_super_shard(part, stream_plan, k: int, mesh: CPMesh, *,
     ``spill`` (a :class:`~repro_torch.sparse.stream.WindowSpill`)
     short-circuits the chunk-scan materialization with the window's on-disk
     copy from an earlier sweep; non-empty windows built fresh are saved
-    back. The ``sorted`` descriptors are computed from the window's
-    ``local_rows`` after any spill load, as the reference does, so the
-    spill holds five arrays. ``streams`` as in :func:`place_mode`."""
+    back. The ``sorted`` descriptors and the work items are computed from
+    the window's ``local_rows`` and ``block_to_tile`` after any spill load,
+    as the reference computes the descriptors, so the spill holds five
+    arrays. ``streams`` as in :func:`place_mode`."""
     _check_mesh(part, mesh)
     sp = stream_plan
     arrays, ready = [], []
@@ -356,8 +374,8 @@ def shard_super_shard(part, stream_plan, k: int, mesh: CPMesh, *,
                                            nblocks=sp.nblocks)
             if spill is not None and t1 > t0:
                 spill.save(part.mode, dev_id, skey, arrs)
-        host = tuple(arrs) + block_segment_descriptors(
-            arrs[2], tile=part.tile, block_p=part.block_p)
+        host = tuple(arrs) + _derived_host_arrays(
+            arrs[2], arrs[3], tile=part.tile, block_p=part.block_p)
         stream = None if streams is None or device.type != "cuda" \
             else streams[device.index]
         dev, ev = _place_device(host, device, stream)

@@ -17,8 +17,11 @@ before launching, the argument checks, and the index bookkeeping that
 splits the blocks among warps: :func:`tile_chunks` cuts each run of
 consecutive blocks of one output tile (:func:`tile_runs`) into work items
 of at most :data:`CHUNK_BLOCKS` blocks, one warp each, for all three
-kernels; :func:`walked_slots` counts the slots those items walk, and
-:func:`split_slots` the slots and partials of the runs they split.
+kernels; :func:`pack_items` puts those items in the one int32 tensor a
+placed shard carries (:func:`item_views` reads it back), and
+:func:`count_items` counts the launches that were given them and those that
+built their own; :func:`walked_slots` counts the slots those items walk,
+and :func:`split_slots` the slots and partials of the runs they split.
 """
 from __future__ import annotations
 
@@ -33,12 +36,14 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.obs import trace as obs_trace
 
 __all__ = ["SOURCES", "SMEM_LIMIT", "MAX_NUM_BUFFERS", "LAUNCHES",
            "reset_launch_counts", "build", "kernel_function", "check",
            "check_blocking", "require", "item_buffers",
-           "tile_runs", "tile_chunks", "TileChunks", "walked_slots",
+           "tile_runs", "tile_chunks", "TileChunks", "pack_items",
+           "item_words", "item_views", "count_items", "walked_slots",
            "split_slots", "CHUNK_BLOCKS",
            "STAGE_SLOTS", "ITEM_WARPS", "MAX_ITEM_RANK",
            "variant_smem_bytes", "copy_width", "launch"]
@@ -224,14 +229,17 @@ def require(t, name: str, *, shape, dtypes, device) -> None:
 
 def item_buffers(variant: str, block_to_tile: torch.Tensor, *,
                  num_rows: int, tile: int, rank: int, nin: int,
-                 num_buffers: int):
+                 num_buffers: int, items: torch.Tensor | None = None):
     """What an EC kernel launch allocates: raise if the rank is above
     :data:`MAX_ITEM_RANK` or the shared memory per block exceeds
     :data:`SMEM_LIMIT`, then return the zeroed ``(num_rows, rank)``
-    f32 output, the work items (:func:`tile_chunks`, in an ``ec.items``
-    span), the scratch buffer of ``(tile, rank)`` f32 partials of split
-    runs (``torch.empty``: every partial the combine reads is written
-    first) and the shared-memory bytes to request."""
+    f32 output, the work items, the scratch buffer of ``(tile, rank)`` f32
+    partials of split runs (``torch.empty``: every partial the combine
+    reads is written first) and the shared-memory bytes to request.
+
+    The work items are views of ``items`` (:func:`pack_items` of this
+    ``block_to_tile``, as a placed shard carries them), or where it is
+    ``None``, built here by :func:`tile_chunks` in an ``ec.items`` span."""
     if rank > MAX_ITEM_RANK:
         raise ValueError(f"ec_{variant} takes R <= {MAX_ITEM_RANK}, got "
                          f"{rank}")
@@ -244,8 +252,14 @@ def item_buffers(variant: str, block_to_tile: torch.Tensor, *,
                          f"{SMEM_LIMIT}")
     dev = block_to_tile.device
     out = torch.zeros((num_rows, rank), dtype=torch.float32, device=dev)
-    with obs_trace.span("ec.items", annotate=True, sync=(dev,)):
-        chunks = tile_chunks(block_to_tile)
+    if items is None:
+        with obs_trace.span("ec.items", annotate=True, sync=(dev,)):
+            chunks = tile_chunks(block_to_tile)
+    else:
+        nblocks = block_to_tile.numel()
+        require(items, "items", shape=(item_words(nblocks),),
+                dtypes=(torch.int32,), device=dev)
+        chunks = item_views(items, nblocks)
     partials = torch.empty((chunks.n_parts, tile, rank), dtype=torch.float32,
                            device=dev)
     return out, chunks, partials, smem
@@ -341,6 +355,39 @@ def tile_chunks(block_to_tile: torch.Tensor,
                                  include_self=True)
     return TileChunks(item_starts, item_part,
                       split[:, :n_split].contiguous(), n_parts)
+
+
+def item_words(nblocks: int) -> int:
+    """Length of :func:`pack_items`' tensor for ``nblocks`` blocks."""
+    return 2 * nblocks + 1 + 3 * (nblocks // CHUNK_BLOCKS)
+
+
+def pack_items(block_to_tile: torch.Tensor) -> torch.Tensor:
+    """:func:`tile_chunks` of ``block_to_tile`` in one int32 tensor of
+    :func:`item_words` entries: ``item_starts``, then ``item_part``, then
+    ``split`` row by row. A placed shard carries it, computed once on the
+    host (CPU torch gives the card's integers: ``amin``/``amax`` over ints
+    is deterministic), so a launch reads its items instead of building
+    them; :func:`item_views` takes it apart."""
+    c = tile_chunks(block_to_tile)
+    return torch.cat([c.item_starts, c.item_part, c.split.reshape(-1)])
+
+
+def item_views(items: torch.Tensor, nblocks: int) -> TileChunks:
+    """The :class:`TileChunks` of :func:`pack_items`' tensor for
+    ``nblocks`` blocks: contiguous views of a contiguous ``items``, nothing
+    copied."""
+    return TileChunks(items[:nblocks + 1], items[nblocks + 1:2 * nblocks + 1],
+                      items[2 * nblocks + 1:].view(3, nblocks // CHUNK_BLOCKS),
+                      (2 * nblocks) // CHUNK_BLOCKS)
+
+
+def count_items(items: torch.Tensor | None) -> None:
+    """Count one EC launch in the global registry: ``ec.items.placed``
+    where it was given its shard's placed items, ``ec.items.built`` where
+    it builds its own (on the CPU, the plain version needs none)."""
+    obs.get_registry().inc("ec.items.built" if items is None
+                           else "ec.items.placed")
 
 
 def walked_slots(values: torch.Tensor, block_to_tile: torch.Tensor,

@@ -64,13 +64,15 @@ def ec_blocked(
     num_rows: int,                        # rows_max (multiple of tile)
     tile: int,
     block_p: int,
+    items: torch.Tensor | None = None,    # _build.pack_items(block_to_tile)
 ) -> torch.Tensor:
     """Blocked EC: returns (num_rows, R) f32.
 
     CPU tensors take :func:`ec_blocked_plain`; CUDA tensors launch the
-    kernel, or raise."""
+    kernel, or raise. ``items`` as in ``ec_sorted``."""
     check_onehot_args(values, row_in_tile, num_rows=num_rows, tile=tile,
                       block_p=block_p)
+    _build.count_items(items)
     if values.device.type == "cpu":
         return ec_blocked_plain(values, row_in_tile, block_to_tile,
                                 gathered_rows, num_rows=num_rows, tile=tile,
@@ -79,7 +81,7 @@ def ec_blocked(
         raise ValueError(f"ec_blocked runs on cpu or cuda tensors, got "
                          f"{values.device}")
     return _launch(values, row_in_tile, block_to_tile, gathered_rows,
-                   num_rows=num_rows, tile=tile, block_p=block_p)
+                   num_rows=num_rows, tile=tile, block_p=block_p, items=items)
 
 
 def ec_blocked_plain(values, row_in_tile, block_to_tile, gathered_rows, *,
@@ -93,7 +95,7 @@ def ec_blocked_plain(values, row_in_tile, block_to_tile, gathered_rows, *,
 
 
 def _launch(values, row_in_tile, block_to_tile, gathered_rows, *, num_rows,
-            tile, block_p, num_buffers=RING_DEPTH):
+            tile, block_p, items, num_buffers=RING_DEPTH):
     dev = values.device
     nnz, nin = values.shape[0], len(gathered_rows)
     nblocks = nnz // block_p
@@ -119,7 +121,7 @@ def _launch(values, row_in_tile, block_to_tile, gathered_rows, *, num_rows,
     rows = [g.float() for g in gathered_rows]
     out, chunks, partials, smem = _build.item_buffers(
         "blocked", block_to_tile, num_rows=num_rows, tile=tile, rank=rank,
-        nin=nin, num_buffers=num_buffers)
+        nin=nin, num_buffers=num_buffers, items=items)
     if nblocks == 0:
         return out
     gptrs = [g.data_ptr() for g in rows] + [0] * (4 - nin)

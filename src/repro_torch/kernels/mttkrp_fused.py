@@ -76,13 +76,15 @@ def ec_fused(
     tile: int,
     block_p: int,
     num_buffers: int = 2,
+    items: torch.Tensor | None = None,  # _build.pack_items(block_to_tile)
 ) -> torch.Tensor:
     """Fused EC: gather + Hadamard + accumulate. Returns (num_rows, R) f32.
 
     CPU tensors take :func:`ec_fused_plain`; CUDA tensors launch the kernel,
-    or raise."""
+    or raise. ``items`` as in ``ec_sorted``."""
     check_onehot_args(values, row_in_tile, num_rows=num_rows, tile=tile,
                       block_p=block_p, num_buffers=num_buffers)
+    _build.count_items(items)
     nnz, nin = values.shape[0], len(factors)
     if tuple(input_indices.shape) != (nnz, nin):
         raise ValueError(f"input_indices has shape "
@@ -96,7 +98,7 @@ def ec_fused(
                          f"{values.device}")
     return _launch(values, row_in_tile, block_to_tile, input_indices, factors,
                    num_rows=num_rows, tile=tile, block_p=block_p,
-                   num_buffers=num_buffers)
+                   num_buffers=num_buffers, items=items)
 
 
 def ec_fused_plain(values, row_in_tile, block_to_tile, input_indices,
@@ -113,7 +115,7 @@ def ec_fused_plain(values, row_in_tile, block_to_tile, input_indices,
 
 
 def _launch(values, row_in_tile, block_to_tile, input_indices, factors, *,
-            num_rows, tile, block_p, num_buffers):
+            num_rows, tile, block_p, num_buffers, items):
     dev = values.device
     nnz, nin = input_indices.shape
     nblocks = nnz // block_p
@@ -136,7 +138,7 @@ def _launch(values, row_in_tile, block_to_tile, input_indices, factors, *,
                        dtypes=f32, device=dev)
     out, chunks, partials, smem = _build.item_buffers(
         "fused", block_to_tile, num_rows=num_rows, tile=tile, rank=rank,
-        nin=nin, num_buffers=num_buffers)
+        nin=nin, num_buffers=num_buffers, items=items)
     if nblocks == 0:
         return out
     fptrs = [f.data_ptr() for f in facs] + [0] * (4 - nin)

@@ -88,15 +88,19 @@ def ec_sorted(
     tile: int,
     block_p: int,
     num_buffers: int = 2,
+    items: torch.Tensor | None = None,  # _build.pack_items(block_to_tile)
 ) -> torch.Tensor:
     """Segmented-reduction EC. Returns (num_rows, R) f32.
 
     CPU tensors take :func:`ec_sorted_plain`; CUDA tensors launch the
     kernel, or raise. ``input_indices[:, j]`` indexes ``factors[j]`` (the
-    output mode is compacted away by the caller, see ops.py)."""
+    output mode is compacted away by the caller, see ops.py). ``items``,
+    the placed shard's work items, spares the launch building them; the
+    call is counted either way (``_build.count_items``)."""
     _check_args(values, seg_starts, seg_rows, input_indices, factors,
                 num_rows=num_rows, tile=tile, block_p=block_p,
                 num_buffers=num_buffers)
+    _build.count_items(items)
     if values.device.type == "cpu":
         return ec_sorted_plain(values, seg_starts, seg_rows, block_to_tile,
                                input_indices, factors, num_rows=num_rows,
@@ -106,7 +110,7 @@ def ec_sorted(
                          f"{values.device}")
     return _launch(values, seg_starts, seg_rows, block_to_tile, input_indices,
                    factors, num_rows=num_rows, tile=tile, block_p=block_p,
-                   num_buffers=num_buffers)
+                   num_buffers=num_buffers, items=items)
 
 
 def ec_sorted_plain(values, seg_starts, seg_rows, block_to_tile,
@@ -132,7 +136,7 @@ def ec_sorted_plain(values, seg_starts, seg_rows, block_to_tile,
 
 
 def _launch(values, seg_starts, seg_rows, block_to_tile, input_indices,
-            factors, *, num_rows, tile, block_p, num_buffers):
+            factors, *, num_rows, tile, block_p, num_buffers, items):
     dev = values.device
     nnz, nin = input_indices.shape
     nblocks, nseg = seg_rows.shape
@@ -160,7 +164,7 @@ def _launch(values, seg_starts, seg_rows, block_to_tile, input_indices,
                        dtypes=f32, device=dev)
     out, chunks, partials, smem = _build.item_buffers(
         "sorted", block_to_tile, num_rows=num_rows, tile=tile, rank=rank,
-        nin=nin, num_buffers=num_buffers)
+        nin=nin, num_buffers=num_buffers, items=items)
     if nblocks == 0:
         return out
     fptrs = [f.data_ptr() for f in facs] + [0] * (4 - nin)

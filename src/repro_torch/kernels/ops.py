@@ -30,9 +30,11 @@ raises — there is no fallback.
 
 A launch's stages carry spans (:mod:`repro_torch.obs.trace`): ``ec.args``
 (:func:`kernel_args`), ``ec.kernel`` (the ``ec_<variant>`` call, or the
-``ref`` EC; inside it ``_build.item_buffers`` opens ``ec.items``) and
-``ec.mask`` (the unvisited tiles zeroed), each ending in a synchronise of
-its card when the tracer is on.
+``ref`` EC; inside it, on a card, ``_build.item_buffers`` opens ``ec.items``
+where the call was given no ``items`` and builds them) and ``ec.mask`` (the
+unvisited tiles zeroed), each ending in a synchronise of its card when the
+tracer is on. A placed shard carries its work items (``DeviceArrays.items``,
+``_build.pack_items``), which the main path passes as ``items``.
 """
 from __future__ import annotations
 
@@ -141,9 +143,9 @@ def kernel_args(variant, indices, values, local_rows, block_to_tile,
 
 def _run_ref(indices, values, local_rows, block_to_tile, factors, *,
              mode, num_rows, tile, block_p, tile_mask, num_buffers,
-             seg_starts, seg_rows):
+             seg_starts, seg_rows, items):
     del block_to_tile, tile, block_p, tile_mask, num_buffers
-    del seg_starts, seg_rows
+    del seg_starts, seg_rows, items
     with obs_trace.span("ec.kernel", annotate=True, sync=(values.device,)):
         return _ref.mttkrp_local_ref(indices, values, local_rows, factors,
                                      mode, num_rows)
@@ -152,7 +154,7 @@ def _run_ref(indices, values, local_rows, block_to_tile, factors, *,
 def _kernel_runner(variant, kernel, takes_num_buffers):
     def run(indices, values, local_rows, block_to_tile, factors, *, mode,
             num_rows, tile, block_p, tile_mask, num_buffers, seg_starts,
-            seg_rows):
+            seg_rows, items):
         card = (values.device,)
         with obs_trace.span("ec.args", annotate=True, sync=card):
             args = kernel_args(variant, indices, values, local_rows,
@@ -161,7 +163,7 @@ def _kernel_runner(variant, kernel, takes_num_buffers):
         extra = dict(num_buffers=num_buffers) if takes_num_buffers else {}
         with obs_trace.span("ec.kernel", annotate=True, sync=card):
             out = kernel(*args, num_rows=num_rows, tile=tile,
-                         block_p=block_p, **extra)
+                         block_p=block_p, items=items, **extra)
         with obs_trace.span("ec.mask", annotate=True, sync=card):
             return _mask_unvisited(out, tile_mask, tile)
     return run
@@ -192,12 +194,14 @@ def mttkrp_local(
     tile_mask: torch.Tensor | None = None,  # (num_rows/tile,) 1=visited
     seg_starts: torch.Tensor | None = None,  # (nblocks, S+1) int32 ("sorted")
     seg_rows: torch.Tensor | None = None,    # (nblocks, S) int32 ("sorted")
+    items: torch.Tensor | None = None,  # _build.pack_items(block_to_tile)
 ) -> torch.Tensor:
     """Local (one-device) EC over this device's shard. Returns
-    (num_rows, R) f32."""
+    (num_rows, R) f32. ``items``, the shard's placed work items, spares a
+    kernel launch building them; without it the launch builds its own."""
     variant = resolve_variant(variant, use_kernel)
     return KERNEL_VARIANTS[variant](
         indices, values, local_rows, block_to_tile, factors,
         mode=mode, num_rows=num_rows, tile=tile, block_p=block_p,
         tile_mask=tile_mask, num_buffers=num_buffers,
-        seg_starts=seg_starts, seg_rows=seg_rows)
+        seg_starts=seg_starts, seg_rows=seg_rows, items=items)

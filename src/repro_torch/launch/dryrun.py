@@ -187,6 +187,7 @@ def cp_step_shapes(prof, *, total: int, replication: int, rank: int = 32,
     (the reference's: nnz evenly split, CDF split ⇒ ±1 index), and one
     device's ``DeviceArrays`` and the replicated factors on ``meta``."""
     from repro_torch.core.mttkrp import DeviceArrays
+    from repro_torch.kernels._build import item_words
     r = replication
     g = total // r
     n = len(prof.shape)
@@ -208,6 +209,7 @@ def cp_step_shapes(prof, *, total: int, replication: int, rank: int = 32,
         tile_visited=st((rows_max // tile,), torch.float32),
         seg_starts=st((nb, tile + 2), torch.int32),
         seg_rows=st((nb, tile + 1), torch.int32),
+        items=st((item_words(nb),), torch.int32),
     )
     factors = [st((padded[w], rank), torch.float32) for w in range(n)]
     return {"nnz_dev": nnz_dev, "rows_max": rows_max, "padded": padded,

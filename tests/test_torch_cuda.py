@@ -126,6 +126,34 @@ def test_kernel_long_runs(cuda, case, variant, num_buffers):
 
 
 @pytest.mark.parametrize("variant", ["sorted", "fused", "blocked"])
+@pytest.mark.parametrize("case", ["all_padding_last_item",
+                                  "mid_run_zero_values", "hot_row_4mode"])
+def test_placed_items_give_the_bits_of_built_ones(cuda, case, variant):
+    """A launch given its shard's placed items (``DeviceArrays.items``,
+    built on the host at placement) writes the bits of the same launch
+    building its own on the card: split runs, pad slots and pad blocks."""
+    part, factors, mode, dev = {**LONG_RUN, **PAD_STAGES}[case]()
+    mesh = dm.cp_mesh(part.num_devices, part.r,
+                      devices=[cuda] * part.num_devices)
+    placed = dm.shard_plan_mode(part, mesh)[dev]
+    assert placed.items.device.type == "cuda"
+    assert torch.equal(placed.items, _build.pack_items(placed.block_to_tile))
+    facs = [torch.from_numpy(f).to(cuda) for f in factors]
+    args = (placed.indices, placed.values, placed.local_rows,
+            placed.block_to_tile, facs)
+    kw = dict(mode=mode, num_rows=part.rows_max, tile=part.tile,
+              block_p=part.block_p, variant=variant,
+              tile_mask=placed.tile_visited, seg_starts=placed.seg_starts,
+              seg_rows=placed.seg_rows)
+    before = _build.LAUNCHES[f"ec_{variant}"]
+    given = ops.mttkrp_local(*args, items=placed.items, **kw)
+    built = ops.mttkrp_local(*args, **kw)
+    assert _build.LAUNCHES[f"ec_{variant}"] == before + 2
+    assert torch.equal(given, built)
+    assert given.abs().sum() > 0
+
+
+@pytest.mark.parametrize("variant", ["sorted", "fused", "blocked"])
 def test_kernel_two_launches_same_bits(cuda, variant):
     part, factors, mode, dev = LONG_RUN["hot_row_4mode"]()
     a = _ec(part, factors, variant, cuda, dev=dev, mode=mode)
