@@ -30,10 +30,10 @@ Phases, each of which exits non-zero on failure:
    semantic oracle): bitwise on every tile whose run is at most
    ``CHUNK_BLOCKS`` blocks, and to 1e-4·max|ref| elsewhere (the two-level
    order regroups those rows' sums). Each kernel's arguments come from
-   ``ops.kernel_args``, as on the main path, and the same launch through
-   ``ops.mttkrp_local`` (with its unvisited-tile masking) must give the
-   same bits. On mode 0 each kernel must also equal the plain version on
-   the CPU bitwise. A 5-mode ``twitch`` case covers nin = 4. Each kernel
+   ``ops.kernel_args``, as on the main path, with the work items placed
+   with the shard, and the same launch through ``ops.mttkrp_local`` must
+   give the same bits. On mode 0 each kernel must also equal the plain
+   version on the CPU bitwise. A 5-mode ``twitch`` case covers nin = 4. Each kernel
    and plain version is timed with CUDA events (warm-up, then the median
    of 20 runs), and so are the main path's whole EC for the mode
    (``ops.mttkrp_local``) and its argument building (``ops.kernel_args``).
@@ -360,11 +360,13 @@ def work_items(b2t: np.ndarray) -> tuple[int, int]:
 
 
 def kernel_cases(dev, part, factors, mode):
-    """The three kernels' wrappers and plain versions, bound to one mode's
-    arrays by ``ops.kernel_args`` (what the main path's dispatch feeds
-    them), plus the bytes each must move at least (every input read once —
-    distinct factor rows only — and the output written once) and its f32
-    operations."""
+    """The three kernels' wrappers (given the shard's placed work items)
+    and plain versions, bound to one mode's arrays by ``ops.kernel_args``
+    (what the main path's dispatch feeds them), plus the bytes each must
+    move at least (every input read once — distinct factor rows only — and
+    the output written once) and its f32 operations."""
+    import functools
+
     import torch
     from repro_torch.kernels import (mttkrp_blocked, mttkrp_fused,
                                      mttkrp_sorted, ops)
@@ -386,14 +388,17 @@ def kernel_cases(dev, part, factors, mode):
     common = nnz * 4 + nb * 4 + (nb + 1) * 4 + part.rows_max * rank * 4
     flops = nnz * rank * (nin + 1)
     return {
-        "ec_sorted": (mttkrp_sorted.ec_sorted, mttkrp_sorted.ec_sorted_plain,
-                      sargs, geo,
+        "ec_sorted": (functools.partial(mttkrp_sorted.ec_sorted,
+                                        items=dev.items),
+                      mttkrp_sorted.ec_sorted_plain, sargs, geo,
                       common + idx.numel() * 4 + dev.seg_starts.numel() * 4
                       + dev.seg_rows.numel() * 4 + distinct, flops),
-        "ec_fused": (mttkrp_fused.ec_fused, mttkrp_fused.ec_fused_plain,
-                     fargs, geo,
+        "ec_fused": (functools.partial(mttkrp_fused.ec_fused,
+                                       items=dev.items),
+                     mttkrp_fused.ec_fused_plain, fargs, geo,
                      common + idx.numel() * 4 + nnz * 4 + distinct, flops),
-        "ec_blocked": (mttkrp_blocked.ec_blocked,
+        "ec_blocked": (functools.partial(mttkrp_blocked.ec_blocked,
+                                         items=dev.items),
                        mttkrp_blocked.ec_blocked_plain, bargs, geo,
                        common + nnz * 4 + nin * nnz * rank * 4, flops),
     }
@@ -402,12 +407,16 @@ def kernel_cases(dev, part, factors, mode):
 def ring_depths(name, kern, args, geo, got) -> dict:
     """The kernel's ms at every ring depth its item kernel takes (2 to
     ``MAX_NUM_BUFFERS``; ``ec_blocked``'s wrapper fixes one, so its launch
-    function is called), each launch bitwise equal to ``got``."""
+    function is called with the wrapper's items), each launch bitwise
+    equal to ``got``."""
+    import functools
+
     import torch
     from repro_torch.kernels import _build, mttkrp_blocked
     ms = {}
     for depth in range(2, _build.MAX_NUM_BUFFERS + 1):
-        launch = mttkrp_blocked._launch if name == "ec_blocked" else kern
+        launch = kern if name != "ec_blocked" else functools.partial(
+            mttkrp_blocked._launch, **kern.keywords)
 
         def run():
             return launch(*args, num_buffers=depth, **geo)
@@ -458,7 +467,7 @@ def parity(plan, rank: int, *, timed: bool, bitwise_mode: int | None,
     recs = {k: [] for k in KERNELS}
     for mode, part in enumerate(plan.modes):
         outs = {}
-        dev = mttkrp.shard_plan_mode(part, mesh)[0]
+        dev, _ = mttkrp.place_shard(part, 0, mesh.devices[0])
         cases = kernel_cases(dev, part, factors, mode)
         # the semantic oracle: slot-order ref (its index_add_ runs in slot
         # order on the card without any flag set here)
@@ -470,9 +479,8 @@ def parity(plan, rank: int, *, timed: bool, bitwise_mode: int | None,
                                part.rows_max)
         for name, (kern, plain, args, geo, nbytes, flops) in cases.items():
             got = kern(*args, **geo)
-            # the same launch through the main path's dispatch, with its
-            # unvisited-tile masking: the kernels are deterministic, and
-            # the tiles no run visits are 0 either way
+            # the same launch through the main path's dispatch: the
+            # kernels are deterministic
             variant = name[len("ec_"):]
             arrays = (dev.indices, dev.values, dev.local_rows,
                       dev.block_to_tile, factors)
@@ -480,8 +488,7 @@ def parity(plan, rank: int, *, timed: bool, bitwise_mode: int | None,
 
             def dispatch():
                 return ops.mttkrp_local(*arrays, mode=mode, variant=variant,
-                                        tile_mask=dev.tile_visited, **seg,
-                                        **geo)
+                                        items=dev.items, **seg, **geo)
 
             via = dispatch()
             if not torch.equal(via, got):
@@ -765,7 +772,6 @@ def multi_device(api, store, cfg, one_dev_fits, cards: int) -> dict:
     schedule, and ``ec_fused``/``ec_blocked`` for two sweeps."""
     import torch
     from repro_torch.core import als, mttkrp
-    from repro_torch.kernels import mttkrp_sorted
     mcfg = cfg.with_overrides({"runtime.num_devices": MD_DEVICES,
                                "partition.replication": None})
     t0 = time.perf_counter()
@@ -797,19 +803,20 @@ def multi_device(api, store, cfg, one_dev_fits, cards: int) -> dict:
               f"{[p.nnz_max for p in plan.modes]}", flush=True)
         # device 0's shard of mode 0: the kernel against its plain version
         part = plan.modes[0]
-        dev0 = mttkrp.shard_plan_mode(part, mesh)[0]
+        dev0, _ = mttkrp.place_shard(part, 0, mesh.devices[0])
         f0 = [f[0] for f in als.init_factors(plan, pcfg.rank, seed=1,
                                              devices=mesh.devices[:1])]
-        args, geo = kernel_cases(dev0, part, f0, 0)["ec_sorted"][2:4]
-        got = mttkrp_sorted.ec_sorted(*args, **geo)
-        ref = mttkrp_sorted.ec_sorted_plain(*args, **geo)
+        kern, plain, args, geo = kernel_cases(dev0, part, f0,
+                                              0)["ec_sorted"][:4]
+        got = kern(*args, **geo)
+        ref = plain(*args, **geo)
         if not torch.equal(got, ref):
             fail(f"r={r}: ec_sorted on device 0's shard of mode 0 is not "
                  f"bitwise equal to its deterministic plain version")
         shard_err = float((got - ref).abs().max())
         print(f"r={r}: ec_sorted on device 0's shard of mode 0 is bitwise "
               f"equal to its plain version", flush=True)
-        del dev0, f0, args, got, ref
+        del dev0, f0, kern, args, got, ref
         runs, snaps = {}, {}
         for ename, ov in EXCHANGES.items():
             sweeps = MD_SWEEPS if ename == "ring" else MD_AB_SWEEPS
@@ -987,7 +994,6 @@ def rebalance_case(api, plan, cfg, mesh, label: str, *, must_migrate: bool,
                    one_dev_fits=None) -> dict:
     """``"off"``, ``"measure"`` and ``"on"`` on one plan (see phase 7)."""
     import torch
-    from repro_torch.kernels import mttkrp_sorted
     torch.cuda.empty_cache()
     for c in {d.index for d in mesh.devices}:
         torch.cuda.reset_peak_memory_stats(c)
@@ -1031,8 +1037,7 @@ def rebalance_case(api, plan, cfg, mesh, label: str, *, must_migrate: bool,
     for mode in moved:
         part = solver.plan.modes[mode]
         for k, dev in enumerate(solver.dev_arrays[mode]):
-            for name in ("indices", "values", "local_rows", "block_to_tile",
-                         "tile_visited"):
+            for name in ("indices", "values", "local_rows", "block_to_tile"):
                 if not torch.equal(getattr(dev, name).cpu(),
                                    torch.from_numpy(getattr(part, name)[k])):
                     fail(f"{label} mode {mode}: device {k}'s placed {name} "
@@ -1046,9 +1051,10 @@ def rebalance_case(api, plan, cfg, mesh, label: str, *, must_migrate: bool,
                      f"each once")
         dev0 = solver.dev_arrays[mode][0]
         f0 = [f[0] for f in solver.state.factors]
-        args, geo = kernel_cases(dev0, part, f0, mode)["ec_sorted"][2:4]
-        got = mttkrp_sorted.ec_sorted(*args, **geo)
-        ref = mttkrp_sorted.ec_sorted_plain(*args, **geo)
+        kern, plain, args, geo = kernel_cases(dev0, part, f0,
+                                              mode)["ec_sorted"][:4]
+        got = kern(*args, **geo)
+        ref = plain(*args, **geo)
         if not torch.equal(got, ref):
             fail(f"{label} mode {mode}: ec_sorted on device 0's migrated "
                  f"shard is not bitwise equal to its plain version")
@@ -1057,7 +1063,7 @@ def rebalance_case(api, plan, cfg, mesh, label: str, *, must_migrate: bool,
               f"ec_sorted = plain bits; "
               f"blocks per device {part.blocks_true.tolist()} (were "
               f"{plan.modes[mode].blocks_true.tolist()})", flush=True)
-        del dev0, f0, args, got, ref
+        del dev0, f0, kern, args, got, ref
     out["peak_alloc_bytes"] = max(torch.cuda.max_memory_allocated(c)
                                   for c in {d.index for d in mesh.devices})
     print(f"{label}: max/mean trajectory measure "
@@ -1426,7 +1432,7 @@ def stream_budget(parts, min_slots: int = 0, buffers: int = 2) -> int:
 def ec_workspace(solver, part, rank: int) -> int:
     """Bytes one super-shard's EC allocates beyond its inputs on device 0
     (the kernel's argument building, the work-item buffers, its output and
-    the masked output), measured once on window (0, 0)."""
+    and its output), measured once on window (0, 0)."""
     import torch
     from repro_torch.kernels import ops
     dev = solver.streamer.get(0, 0)[0]
@@ -1437,8 +1443,8 @@ def ec_workspace(solver, part, rank: int) -> int:
     out = ops.mttkrp_local(
         dev.indices, dev.values, dev.local_rows, dev.block_to_tile, facs,
         mode=0, num_rows=part.rows_max, tile=part.tile, block_p=part.block_p,
-        tile_mask=dev.tile_visited, seg_starts=dev.seg_starts,
-        seg_rows=dev.seg_rows, **solver._kernel_kw)
+        seg_starts=dev.seg_starts, seg_rows=dev.seg_rows, items=dev.items,
+        **solver._kernel_kw)
     torch.cuda.synchronize()
     del out
     return torch.cuda.max_memory_allocated() - before
@@ -3644,9 +3650,8 @@ def run_phases(args, api, kind: str, smi: str, tmp: str) -> None:
            label="twitch(5-mode)")
 
     phase("main path")
-    from repro_torch.core.mttkrp import cp_mesh, shard_plan_mode
-    cpu1 = cp_mesh(1, 1, devices=["cpu"])
-    shard_bytes = [shard_plan_mode(p, cpu1)[0].nbytes() for p in plan.modes]
+    from repro_torch.core.mttkrp import place_shard
+    shard_bytes = [place_shard(p, 0, "cpu")[0].nbytes() for p in plan.modes]
     print(f"device bytes of the shards per mode: {shard_bytes}")
     torch.cuda.reset_peak_memory_stats()
     fits, counts, wall = run_solver(api, plan, cfg, SWEEPS, "sorted")

@@ -236,7 +236,7 @@ def ec_recorded_ops(variant: str, *, nmodes: int, rank: int,
     on ``device`` (``None``: the card); returns the records and the
     shard's slot count."""
     from repro_torch.api.solver import resolve_device
-    from repro_torch.core.partition import block_segment_descriptors
+    from repro_torch.core.mttkrp import place_shard
     from repro_torch.kernels import autotune, ops
 
     dev = resolve_device(device)
@@ -247,23 +247,15 @@ def ec_recorded_ops(variant: str, *, nmodes: int, rank: int,
     factors = [torch.tensor(rng.normal(size=(s, rank)).astype(np.float32),
                             device=dev) for s in t.shape]
 
-    def put(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-
-    args = [put(part.indices[0]), put(part.values[0]),
-            put(part.local_rows[0]), put(part.block_to_tile[0])]
-    seg_kw = {}
-    if variant == "sorted":
-        ss, sr = block_segment_descriptors(part.local_rows[0],
-                                           tile=part.tile,
-                                           block_p=part.block_p)
-        seg_kw = dict(seg_starts=put(ss), seg_rows=put(sr))
-    mask = put(part.tile_visited[0])
+    shard, _ = place_shard(part, 0, dev)
     with record_ops() as records:
-        ops.mttkrp_local(*args, factors, mode=0, num_rows=part.rows_max,
-                         tile=part.tile, block_p=part.block_p,
-                         use_kernel=variant != "ref", variant=variant,
-                         num_buffers=num_buffers, tile_mask=mask, **seg_kw)
+        ops.mttkrp_local(shard.indices, shard.values, shard.local_rows,
+                         shard.block_to_tile, factors, mode=0,
+                         num_rows=part.rows_max, tile=part.tile,
+                         block_p=part.block_p, use_kernel=variant != "ref",
+                         variant=variant, num_buffers=num_buffers,
+                         seg_starts=shard.seg_starts,
+                         seg_rows=shard.seg_rows, items=shard.items)
     return records, int(part.indices[0].shape[0])
 
 

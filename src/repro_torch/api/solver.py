@@ -136,16 +136,19 @@ def validate_factor_payload(factors, lam, *, shape, rank,
 
 def _gauge_slots(mode: int, block_p: int, shards) -> None:
     """Set the global registry's gauges of the mode's placed shards, counted
-    on host copies (so no device memory): ``ec.walked_slot_share.mode<mode>``,
+    on host copies (so no device memory) of their values and placed work
+    items (``_build.item_views``): ``ec.walked_slot_share.mode<mode>``,
     the slots the EC's item kernel walks (``_build.walked_slots``) over the
     slots placed; ``ec.split_slot_share.mode<mode>``, the slots in runs the
     EC splits into partials (``_build.split_slots``) over the slots placed;
     and ``ec.partials.mode<mode>``, the partials its launches write."""
     walked = split = partials = placed = 0
     for dev in shards:
-        values, b2t = dev.values.cpu(), dev.block_to_tile.cpu()
-        walked += _build.walked_slots(values, b2t, block_p)
-        s, p = _build.split_slots(b2t, block_p)
+        values = dev.values.cpu()
+        chunks = _build.item_views(dev.items.cpu(),
+                                   dev.block_to_tile.numel())
+        walked += _build.walked_slots(values, chunks, block_p)
+        s, p = _build.split_slots(chunks, block_p)
         split, partials = split + s, partials + p
         placed += values.numel()
     reg = obs.get_registry()
@@ -672,8 +675,8 @@ class CPSolver:
         """Export every span the process tracer recorded as Chrome-trace
         JSON (load in ``chrome://tracing`` or https://ui.perfetto.dev);
         returns the trace dict. Spans nest run → sweep → {shards,
-        mode_update → {ec → {ec.args, ec.kernel → ec.items, ec.mask},
-        exchange, solve → eigh}, fit} (a streamed sweep: h2d_window and
+        mode_update → {ec → {ec.args, ec.kernel}, exchange, solve →
+        eigh}, fit} (a streamed sweep: h2d_window and
         ec per super-shard) (+ plan/compile/checkpoint/rebalance)."""
         return obs_export.dump_chrome_trace(
             path, obs_trace.get_tracer().records())

@@ -44,8 +44,8 @@ from repro_torch.core.partition import (CPPlan, ModePartition,
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as kops
 
-__all__ = ["CPMesh", "cp_mesh", "DeviceArrays", "Placed", "place_mode",
-           "shard_plan_mode", "MTTKRPFn", "make_mttkrp_fn",
+__all__ = ["CPMesh", "cp_mesh", "DeviceArrays", "Placed", "place_shard",
+           "place_mode", "shard_plan_mode", "MTTKRPFn", "make_mttkrp_fn",
            "distributed_mttkrp", "shard_super_shard", "zero_partials",
            "make_partial_mttkrp_fn", "make_streaming_finish_fn"]
 
@@ -150,24 +150,23 @@ def _check_mesh(part: ModePartition, mesh: CPMesh) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class DeviceArrays:
-    """One mode's shard on one logical device."""
+    """One mode's shard on one logical device (:func:`place_shard`)."""
 
     indices: torch.Tensor        # (nnz_max, N) int32
     values: torch.Tensor         # (nnz_max,) f32
     local_rows: torch.Tensor     # (nnz_max,) int32
     block_to_tile: torch.Tensor  # (nblocks,) int32
-    tile_visited: torch.Tensor   # (ntiles,) f32
     # Per-block row-segment descriptors for the "sorted" EC variant; small
     # (O(nblocks * tile)) and derived from local_rows at shard time.
     seg_starts: torch.Tensor     # (nblocks, tile + 2) int32
     seg_rows: torch.Tensor       # (nblocks, tile + 1) int32
     # The EC's work items of block_to_tile, packed in one tensor
     # (_build.pack_items); small (~8.75 B a block) and built at placement,
-    # so no launch of a sweep builds them.
+    # so no launch builds them.
     items: torch.Tensor          # (_build.item_words(nblocks),) int32
 
     def tensors(self) -> tuple[torch.Tensor, ...]:
-        """The eight tensors themselves, in field order (not
+        """The seven tensors themselves, in field order (not
         ``dataclasses.astuple``, which deep-copies each one)."""
         return tuple(getattr(self, n) for n in _ARRAY_NAMES)
 
@@ -176,7 +175,7 @@ class DeviceArrays:
 
 
 _ARRAY_NAMES = ("indices", "values", "local_rows", "block_to_tile",
-                "tile_visited", "seg_starts", "seg_rows", "items")
+                "seg_starts", "seg_rows", "items")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,7 +205,7 @@ class Placed:
 
 def _place_device(host: Sequence[np.ndarray], device: torch.device,
                   stream=None) -> tuple[DeviceArrays, object]:
-    """One device's eight host arrays onto ``device``. With a side CUDA
+    """One device's seven host arrays onto ``device``. With a side CUDA
     ``stream``, each array is copied into a pinned host buffer and from
     there to the card on that stream, and an event is recorded after the
     last copy: the host does not wait for the transfer. Pinning that fails
@@ -227,47 +226,48 @@ def _place_device(host: Sequence[np.ndarray], device: torch.device,
     return DeviceArrays(*out), ev
 
 
-def _derived_host_arrays(rows: np.ndarray, b2t: np.ndarray, *, tile: int,
-                         block_p: int) -> tuple[np.ndarray, ...]:
-    """What placement derives from a shard's ``local_rows`` and
-    ``block_to_tile`` on the host: the sorted variant's segment descriptors
-    and the EC's packed work items (``_build.pack_items``, on CPU torch)."""
-    ss, sr = block_segment_descriptors(rows, tile=tile, block_p=block_p)
-    items = _build.pack_items(torch.tensor(np.asarray(b2t, np.int32)))
-    return ss, sr, items.numpy()
-
-
-def _device_host_arrays(part, k: int) -> tuple[np.ndarray, ...]:
-    """Device ``k``'s eight host arrays of ``part``: a lazy partition's
-    payload is materialized from its store here, one device at a time."""
-    if getattr(part, "lazy", False):
-        ind, val, rows = part.device_arrays(k)
+def place_shard(part, k: int, device, *, arrays=None,
+                stream=None) -> tuple[DeviceArrays, object]:
+    """Device ``k``'s shard of ``part`` on ``device``: its ``indices``,
+    ``values``, ``local_rows`` and ``block_to_tile`` (``arrays``, where
+    given: a super-shard's window, whose first four arrays these are; else
+    the partition's own, a lazy partition's read from its store here), with
+    what placement derives from them on the host: the ``sorted`` variant's
+    segment descriptors (as the reference computes them, mttkrp.py:93-99)
+    and the EC's packed work items (``_build.pack_items``, on CPU torch).
+    The one constructor of a :class:`DeviceArrays`: every caller of the EC
+    gets its shard here. ``stream`` as in :func:`_place_device`; returns
+    the shard and the event after its copies (``None`` without a
+    stream)."""
+    if arrays is None:
+        if getattr(part, "lazy", False):
+            ind, val, rows = part.device_arrays(k)
+        else:
+            ind, val, rows = (part.indices[k], part.values[k],
+                              part.local_rows[k])
+        b2t = part.block_to_tile[k]
     else:
-        ind, val, rows = (part.indices[k], part.values[k],
-                          part.local_rows[k])
-    b2t = part.block_to_tile[k]
-    return (ind, val, rows, b2t, part.tile_visited[k],
-            *_derived_host_arrays(rows, b2t, tile=part.tile,
-                                  block_p=part.block_p))
+        ind, val, rows, b2t = arrays[:4]
+    ss, sr = block_segment_descriptors(rows, tile=part.tile,
+                                       block_p=part.block_p)
+    items = _build.pack_items(torch.tensor(np.asarray(b2t, np.int32)))
+    return _place_device((ind, val, rows, b2t, ss, sr, items.numpy()),
+                         torch.device(device), stream)
 
 
 def place_mode(part, mesh: CPMesh, streams=None) -> Placed:
-    """Move one mode's host arrays onto the mesh, shard ``k`` onto logical
-    device ``k``, computing the sorted variant's segment descriptors (as
-    the reference does, mttkrp.py:93-99) and the EC's work items on the
-    way. Out-of-core partitions (``part.lazy``) never stack a host ``(m,
-    nnz_max)`` array: each device's slice is streamed from the store and
-    placed before the next one is read. ``streams`` maps a card index to
-    its side copy stream (see :func:`_place_device`); ``None`` copies
-    synchronously."""
+    """Move one mode's shards onto the mesh, shard ``k`` onto logical
+    device ``k`` (:func:`place_shard`). Out-of-core partitions
+    (``part.lazy``) never stack a host ``(m, nnz_max)`` array: each
+    device's slice is streamed from the store and placed before the next
+    one is read. ``streams`` maps a card index to its side copy stream
+    (see :func:`_place_device`); ``None`` copies synchronously."""
     _check_mesh(part, mesh)
     arrays, ready = [], []
     for k, device in enumerate(mesh.devices):
-        host = _device_host_arrays(part, k)
         stream = None if streams is None or device.type != "cuda" \
             else streams[device.index]
-        dev, ev = _place_device(host, device, stream)
-        del host  # host copy freed before the next device's slice
+        dev, ev = place_shard(part, k, device, stream=stream)
         arrays.append(dev)
         ready.append(ev)
     return Placed(arrays, ready)
@@ -299,9 +299,8 @@ class MTTKRPFn:
         return [kops.mttkrp_local(
             dev.indices, dev.values, dev.local_rows, dev.block_to_tile,
             [f[k] for f in factors], mode=p.mode, num_rows=p.rows_max,
-            tile=p.tile, block_p=p.block_p, tile_mask=dev.tile_visited,
-            seg_starts=dev.seg_starts, seg_rows=dev.seg_rows,
-            items=dev.items, **self.kernel_kw)
+            tile=p.tile, block_p=p.block_p, seg_starts=dev.seg_starts,
+            seg_rows=dev.seg_rows, items=dev.items, **self.kernel_kw)
             for k, dev in enumerate(dev_arrays)]
 
     def exchange(self, partials: Sequence[torch.Tensor]
@@ -350,16 +349,17 @@ def shard_super_shard(part, stream_plan, k: int, mesh: CPMesh, *,
     ``stream_plan.windows[dev][k]`` (the blocking metadata differs per
     window, not only the payload). Shapes are the stream plan's caps, so
     every super-shard of a mode has one shape. Devices whose window list is
-    exhausted get empty ``(0, 0)`` windows: pure padding, exact no-ops
-    under the tile mask.
+    exhausted get empty ``(0, 0)`` windows: pure padding, all of it in the
+    window's pad tile with value 0.
 
     ``spill`` (a :class:`~repro_torch.sparse.stream.WindowSpill`)
     short-circuits the chunk-scan materialization with the window's on-disk
     copy from an earlier sweep; non-empty windows built fresh are saved
-    back. The ``sorted`` descriptors and the work items are computed from
-    the window's ``local_rows`` and ``block_to_tile`` after any spill load,
-    as the reference computes the descriptors, so the spill holds five
-    arrays. ``streams`` as in :func:`place_mode`."""
+    back. The window's five arrays (the fifth, its ``tile_visited``, is the
+    spill's and not placed) go through :func:`place_shard`, which derives
+    the ``sorted`` descriptors and the work items after any spill load, as
+    the reference computes the descriptors. ``streams`` as in
+    :func:`place_mode`."""
     _check_mesh(part, mesh)
     sp = stream_plan
     arrays, ready = [], []
@@ -374,12 +374,11 @@ def shard_super_shard(part, stream_plan, k: int, mesh: CPMesh, *,
                                            nblocks=sp.nblocks)
             if spill is not None and t1 > t0:
                 spill.save(part.mode, dev_id, skey, arrs)
-        host = tuple(arrs) + _derived_host_arrays(
-            arrs[2], arrs[3], tile=part.tile, block_p=part.block_p)
         stream = None if streams is None or device.type != "cuda" \
             else streams[device.index]
-        dev, ev = _place_device(host, device, stream)
-        del arrs, host  # host copy freed before the next device's window
+        dev, ev = place_shard(part, dev_id, device, arrays=arrs,
+                              stream=stream)
+        del arrs  # host copy freed before the next device's window
         arrays.append(dev)
         ready.append(ev)
     return Placed(arrays, ready)
@@ -400,12 +399,13 @@ def make_partial_mttkrp_fn(part, mesh: CPMesh, *, use_kernel: bool = True,
 
     Super-shards split at tile boundaries, so each output row is produced
     by ONE super-shard's EC, with the resident shard's block order and
-    slot order; every other super-shard adds an exact 0.0 there (masked
-    tiles). A zero accumulator therefore ends up holding the resident
-    partial bit for bit — also where a window's trailing pad blocks
-    lengthen its last tile's run past ``CHUNK_BLOCKS``: those blocks add
-    exact zeros to the chunk partials — and the finish
-    (:func:`make_streaming_finish_fn`) is the resident exchange."""
+    slot order; every other super-shard adds an exact 0.0 there (its
+    zeroed output, or a pad's zero product). A zero accumulator therefore
+    ends up holding the resident partial bit for bit — also where a
+    window's trailing pad blocks lengthen its last tile's run past
+    ``CHUNK_BLOCKS``: those blocks add exact zeros to the chunk partials —
+    and the finish (:func:`make_streaming_finish_fn`) is the resident
+    exchange."""
     local = MTTKRPFn(part, mesh,
                      kernel_kw=dict(use_kernel=use_kernel, variant=variant,
                                     num_buffers=num_buffers),

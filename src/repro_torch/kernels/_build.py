@@ -15,13 +15,13 @@ Also here: the launch counters (one plain int per kernel, raised by the
 wrapper where it launches), the shared-memory model the wrappers check
 before launching, the argument checks, and the index bookkeeping that
 splits the blocks among warps: :func:`tile_chunks` cuts each run of
-consecutive blocks of one output tile (:func:`tile_runs`) into work items
-of at most :data:`CHUNK_BLOCKS` blocks, one warp each, for all three
-kernels; :func:`pack_items` puts those items in the one int32 tensor a
-placed shard carries (:func:`item_views` reads it back), and
-:func:`count_items` counts the launches that were given them and those that
-built their own; :func:`walked_slots` counts the slots those items walk,
-and :func:`split_slots` the slots and partials of the runs they split.
+consecutive blocks of one output tile into work items of at most
+:data:`CHUNK_BLOCKS` blocks, one warp each, for all three kernels;
+:func:`pack_items` puts those items in the one int32 tensor a placed shard
+carries (:func:`item_views` reads it back), which every launch is given,
+and :func:`count_items` counts those launches; :func:`walked_slots` counts
+the slots those items walk, and :func:`split_slots` the slots and partials
+of the runs they split.
 """
 from __future__ import annotations
 
@@ -37,12 +37,11 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import obs
-from repro_torch.obs import trace as obs_trace
 
 __all__ = ["SOURCES", "SMEM_LIMIT", "MAX_NUM_BUFFERS", "LAUNCHES",
            "reset_launch_counts", "build", "kernel_function", "check",
            "check_blocking", "require", "item_buffers",
-           "tile_runs", "tile_chunks", "TileChunks", "pack_items",
+           "tile_chunks", "TileChunks", "pack_items",
            "item_words", "item_views", "count_items", "walked_slots",
            "split_slots", "CHUNK_BLOCKS",
            "STAGE_SLOTS", "ITEM_WARPS", "MAX_ITEM_RANK",
@@ -229,17 +228,15 @@ def require(t, name: str, *, shape, dtypes, device) -> None:
 
 def item_buffers(variant: str, block_to_tile: torch.Tensor, *,
                  num_rows: int, tile: int, rank: int, nin: int,
-                 num_buffers: int, items: torch.Tensor | None = None):
+                 num_buffers: int, items: torch.Tensor):
     """What an EC kernel launch allocates: raise if the rank is above
     :data:`MAX_ITEM_RANK` or the shared memory per block exceeds
     :data:`SMEM_LIMIT`, then return the zeroed ``(num_rows, rank)``
-    f32 output, the work items, the scratch buffer of ``(tile, rank)`` f32
-    partials of split runs (``torch.empty``: every partial the combine
-    reads is written first) and the shared-memory bytes to request.
-
-    The work items are views of ``items`` (:func:`pack_items` of this
-    ``block_to_tile``, as a placed shard carries them), or where it is
-    ``None``, built here by :func:`tile_chunks` in an ``ec.items`` span."""
+    f32 output, the work items (views of ``items``, :func:`pack_items` of
+    this ``block_to_tile`` as its placed shard carries them), the scratch
+    buffer of ``(tile, rank)`` f32 partials of split runs (``torch.empty``:
+    every partial the combine reads is written first) and the
+    shared-memory bytes to request."""
     if rank > MAX_ITEM_RANK:
         raise ValueError(f"ec_{variant} takes R <= {MAX_ITEM_RANK}, got "
                          f"{rank}")
@@ -252,41 +249,10 @@ def item_buffers(variant: str, block_to_tile: torch.Tensor, *,
                          f"{SMEM_LIMIT}")
     dev = block_to_tile.device
     out = torch.zeros((num_rows, rank), dtype=torch.float32, device=dev)
-    if items is None:
-        with obs_trace.span("ec.items", annotate=True, sync=(dev,)):
-            chunks = tile_chunks(block_to_tile)
-    else:
-        nblocks = block_to_tile.numel()
-        require(items, "items", shape=(item_words(nblocks),),
-                dtypes=(torch.int32,), device=dev)
-        chunks = item_views(items, nblocks)
+    chunks = item_views(items, block_to_tile.numel())
     partials = torch.empty((chunks.n_parts, tile, rank), dtype=torch.float32,
                            device=dev)
     return out, chunks, partials, smem
-
-
-def tile_runs(block_to_tile: torch.Tensor) -> torch.Tensor:
-    """Start block of every run of equal ``block_to_tile``: an
-    ``(nblocks + 1,)`` int32 tensor whose first ``nruns`` entries are the
-    runs' first blocks and whose remaining entries are ``nblocks``. So run
-    ``i`` spans ``[starts[i], starts[i + 1])``, and ``starts[i] == nblocks``
-    marks an index past the last run.
-
-    Built with torch ops on the tensor's device and without a host sync;
-    :func:`tile_chunks` cuts these runs into work items. By the partition
-    contract (core/partition.py) the blocks of a tile are consecutive, so
-    each visited tile is exactly one run."""
-    nb = block_to_tile.numel()
-    dev = block_to_tile.device
-    starts = torch.full((nb + 1,), nb, dtype=torch.int32, device=dev)
-    if nb == 0:
-        return starts
-    new = torch.ones(nb, dtype=torch.bool, device=dev)
-    new[1:] = block_to_tile[1:] != block_to_tile[:-1]
-    run_id = torch.cumsum(new, 0) - 1
-    blocks = torch.arange(nb, dtype=torch.int32, device=dev)
-    return starts.scatter_reduce_(0, run_id, blocks, reduce="amin",
-                                  include_self=True)
 
 
 class TileChunks(NamedTuple):
@@ -312,14 +278,16 @@ def tile_chunks(block_to_tile: torch.Tensor,
     ``chunk_blocks`` consecutive blocks, in order. A run of at most
     ``chunk_blocks`` blocks is one item, which writes its tile directly; a
     longer run is split, each item writing a partial that ``ec_combine``
-    adds into the tile in item order.
+    adds into the tile in item order. By the partition contract
+    (core/partition.py) the blocks of a tile are consecutive, so each
+    visited tile is exactly one run.
 
-    Built with torch ops on the tensor's device and without a host sync,
-    as :func:`tile_runs` is: sizes are upper bounds (at most ``nblocks``
-    items, fewer than ``nblocks / chunk_blocks`` split runs, and fewer than
-    ``2 * nblocks / chunk_blocks`` partials, since a split run of ``L >
-    chunk_blocks`` blocks has ``ceil(L / chunk_blocks) < 2 L /
-    chunk_blocks`` of them), and entries past the last are marked."""
+    Built with torch ops on the tensor's device and without a host sync:
+    sizes are upper bounds (at most ``nblocks`` items, fewer than ``nblocks
+    / chunk_blocks`` split runs, and fewer than ``2 * nblocks /
+    chunk_blocks`` partials, since a split run of ``L > chunk_blocks``
+    blocks has ``ceil(L / chunk_blocks) < 2 L / chunk_blocks`` of them),
+    and entries past the last are marked."""
     nb = block_to_tile.numel()
     dev = block_to_tile.device
     i32 = torch.int32
@@ -329,11 +297,13 @@ def tile_chunks(block_to_tile: torch.Tensor,
     split = torch.full((3, n_split + 1), -1, dtype=i32, device=dev)
     if nb == 0:
         return TileChunks(item_starts, item_part, split[:, :n_split], n_parts)
-    runs = tile_runs(block_to_tile).long()
+    # the runs: each block's run, and each run's first block (then nb)
     new = torch.ones(nb, dtype=torch.bool, device=dev)
     new[1:] = block_to_tile[1:] != block_to_tile[:-1]
     run_id = torch.cumsum(new, 0) - 1
     blocks = torch.arange(nb, dtype=torch.int64, device=dev)
+    runs = torch.full((nb + 1,), nb, dtype=torch.int64, device=dev)
+    runs.scatter_reduce_(0, run_id, blocks, reduce="amin", include_self=True)
     pos = blocks - runs[run_id]
     length = (runs[1:] - runs[:-1])[run_id]
     is_split = length > chunk_blocks
@@ -382,26 +352,30 @@ def item_views(items: torch.Tensor, nblocks: int) -> TileChunks:
                       (2 * nblocks) // CHUNK_BLOCKS)
 
 
-def count_items(items: torch.Tensor | None) -> None:
-    """Count one EC launch in the global registry: ``ec.items.placed``
-    where it was given its shard's placed items, ``ec.items.built`` where
-    it builds its own (on the CPU, the plain version needs none)."""
-    obs.get_registry().inc("ec.items.built" if items is None
-                           else "ec.items.placed")
+def count_items(items: torch.Tensor, nblocks: int,
+                device: torch.device) -> None:
+    """Raise unless ``items`` is a packed work-item tensor for ``nblocks``
+    blocks on ``device`` (:func:`pack_items`), then count one EC launch
+    given its shard's placed items in the global registry
+    (``ec.items.placed``). Every ``ec_<variant>`` call does, on the CPU
+    too, whose plain version needs no items."""
+    require(items, "items", shape=(item_words(nblocks),),
+            dtypes=(torch.int32,), device=device)
+    obs.get_registry().inc("ec.items.placed")
 
 
-def walked_slots(values: torch.Tensor, block_to_tile: torch.Tensor,
+def walked_slots(values: torch.Tensor, chunks: TileChunks,
                  block_p: int) -> int:
     """The slots the EC item kernel walks on one shard, by the kernel's own
-    rule (``csrc/ec_common.cuh``): each work item (:func:`tile_chunks`)
-    walks its stages of :data:`STAGE_SLOTS` slots up to and including the
-    stage that holds its last slot whose value is not 0, and none after it;
-    an item whose values are all 0 walks none. So the count is a multiple of
-    :data:`STAGE_SLOTS` wherever ``block_p`` is. Pad slots, value 0, lie at
-    the end of a tile's run; a zero value before a run's last nonzero is
-    walked. Plain torch ops on the tensors' device, ending in a host read:
-    for placement, not for a sweep."""
-    nb = block_to_tile.numel()
+    rule (``csrc/ec_common.cuh``): each work item (``chunks``, the shard's
+    :func:`item_views`) walks its stages of :data:`STAGE_SLOTS` slots up to
+    and including the stage that holds its last slot whose value is not 0,
+    and none after it; an item whose values are all 0 walks none. So the
+    count is a multiple of :data:`STAGE_SLOTS` wherever ``block_p`` is.
+    Pad slots, value 0, lie at the end of a tile's run; a zero value before
+    a run's last nonzero is walked. Plain torch ops on the tensors' device,
+    ending in a host read: for placement, not for a sweep."""
+    nb = chunks.item_part.numel()
     if nb == 0:
         return 0
     nz = values[:nb * block_p].reshape(nb, block_p) != 0
@@ -409,7 +383,7 @@ def walked_slots(values: torch.Tensor, block_to_tile: torch.Tensor,
     # its stage
     last = block_p - 1 - nz.flip(1).to(torch.uint8).argmax(1)
     upto = torch.clamp((last // STAGE_SLOTS + 1) * STAGE_SLOTS, max=block_p)
-    starts = tile_chunks(block_to_tile).item_starts.long()
+    starts = chunks.item_starts.long()
     first = torch.zeros(nb + 1, dtype=torch.int64, device=nz.device)
     first[starts] = 1
     item_id = torch.cumsum(first[:nb], 0) - 1
@@ -424,18 +398,17 @@ def walked_slots(values: torch.Tensor, block_to_tile: torch.Tensor,
     return int(per_item.sum())
 
 
-def split_slots(block_to_tile: torch.Tensor,
-                block_p: int) -> tuple[int, int]:
+def split_slots(chunks: TileChunks, block_p: int) -> tuple[int, int]:
     """``(slots, partials)`` of the split path on one shard, by
-    :func:`tile_chunks`' own rule: the placed slots whose block lies in a
-    run of more than :data:`CHUNK_BLOCKS` blocks (pad slots included, as
-    the kernel's launch holds them), and the ``(tile, R)`` partials the
-    launch writes, one per work item of such a run (``TileChunks.n_parts``
-    is only their bound). Plain torch ops ending in a host read: for
-    placement, not for a sweep."""
-    c = tile_chunks(block_to_tile)
-    starts = c.item_starts.long()
-    parted = c.item_part >= 0
+    :func:`tile_chunks`' own rule, read from its work items ``chunks`` (the
+    shard's :func:`item_views`): the placed slots whose block lies in a run
+    of more than :data:`CHUNK_BLOCKS` blocks (pad slots included, as the
+    kernel's launch holds them), and the ``(tile, R)`` partials the launch
+    writes, one per work item of such a run (``TileChunks.n_parts`` is only
+    their bound). Plain torch ops ending in a host read: for placement,
+    not for a sweep."""
+    starts = chunks.item_starts.long()
+    parted = chunks.item_part >= 0
     blocks = (starts[1:] - starts[:-1])[parted]
     return int(blocks.sum()) * block_p, int(parted.sum())
 

@@ -225,23 +225,16 @@ def _time_candidate(t, part, rank: int, variant: str, num_buffers: int,
     factors = [torch.from_numpy(rng.normal(size=(s, rank))).to(
         device=device, dtype=dtype) for s in t.shape]
 
-    def put(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
-
-    args = (put(part.indices[0]), put(part.values[0]),
-            put(part.local_rows[0]), put(part.block_to_tile[0]))
-    kw = dict(mode=0, num_rows=part.rows_max, tile=part.tile,
-              block_p=part.block_p, variant=variant, num_buffers=num_buffers,
-              tile_mask=put(part.tile_visited[0]))
-    if variant == "sorted":
-        from repro_torch.core.partition import block_segment_descriptors
-        ss, sr = block_segment_descriptors(part.local_rows[0],
-                                           tile=part.tile,
-                                           block_p=part.block_p)
-        kw.update(seg_starts=put(ss), seg_rows=put(sr))
+    from repro_torch.core.mttkrp import place_shard
+    dev, _ = place_shard(part, 0, device)
 
     def run():
-        return kops.mttkrp_local(*args, factors, **kw)
+        return kops.mttkrp_local(
+            dev.indices, dev.values, dev.local_rows, dev.block_to_tile,
+            factors, mode=0, num_rows=part.rows_max, tile=part.tile,
+            block_p=part.block_p, variant=variant, num_buffers=num_buffers,
+            seg_starts=dev.seg_starts, seg_rows=dev.seg_rows,
+            items=dev.items)
 
     best = float("inf")
     if device.type == "cuda":

@@ -64,7 +64,7 @@ def ec_blocked(
     num_rows: int,                        # rows_max (multiple of tile)
     tile: int,
     block_p: int,
-    items: torch.Tensor | None = None,    # _build.pack_items(block_to_tile)
+    items: torch.Tensor,                  # _build.pack_items(block_to_tile)
 ) -> torch.Tensor:
     """Blocked EC: returns (num_rows, R) f32.
 
@@ -72,7 +72,8 @@ def ec_blocked(
     kernel, or raise. ``items`` as in ``ec_sorted``."""
     check_onehot_args(values, row_in_tile, num_rows=num_rows, tile=tile,
                       block_p=block_p)
-    _build.count_items(items)
+    _build.count_items(items, values.shape[0] // block_p,
+                       values.device)
     if values.device.type == "cpu":
         return ec_blocked_plain(values, row_in_tile, block_to_tile,
                                 gathered_rows, num_rows=num_rows, tile=tile,

@@ -76,7 +76,7 @@ def ec_fused(
     tile: int,
     block_p: int,
     num_buffers: int = 2,
-    items: torch.Tensor | None = None,  # _build.pack_items(block_to_tile)
+    items: torch.Tensor,               # _build.pack_items(block_to_tile)
 ) -> torch.Tensor:
     """Fused EC: gather + Hadamard + accumulate. Returns (num_rows, R) f32.
 
@@ -84,7 +84,8 @@ def ec_fused(
     or raise. ``items`` as in ``ec_sorted``."""
     check_onehot_args(values, row_in_tile, num_rows=num_rows, tile=tile,
                       block_p=block_p, num_buffers=num_buffers)
-    _build.count_items(items)
+    _build.count_items(items, values.shape[0] // block_p,
+                       values.device)
     nnz, nin = values.shape[0], len(factors)
     if tuple(input_indices.shape) != (nnz, nin):
         raise ValueError(f"input_indices has shape "

@@ -88,19 +88,21 @@ def ec_sorted(
     tile: int,
     block_p: int,
     num_buffers: int = 2,
-    items: torch.Tensor | None = None,  # _build.pack_items(block_to_tile)
+    items: torch.Tensor,               # _build.pack_items(block_to_tile)
 ) -> torch.Tensor:
     """Segmented-reduction EC. Returns (num_rows, R) f32.
 
     CPU tensors take :func:`ec_sorted_plain`; CUDA tensors launch the
     kernel, or raise. ``input_indices[:, j]`` indexes ``factors[j]`` (the
-    output mode is compacted away by the caller, see ops.py). ``items``,
-    the placed shard's work items, spares the launch building them; the
-    call is counted either way (``_build.count_items``)."""
+    output mode is compacted away by the caller, see ops.py). ``items``
+    are the placed shard's work items (``DeviceArrays.items``), checked
+    and counted on every call (``_build.count_items``); the plain version
+    needs none."""
     _check_args(values, seg_starts, seg_rows, input_indices, factors,
                 num_rows=num_rows, tile=tile, block_p=block_p,
                 num_buffers=num_buffers)
-    _build.count_items(items)
+    _build.count_items(items, values.shape[0] // block_p,
+                       values.device)
     if values.device.type == "cpu":
         return ec_sorted_plain(values, seg_starts, seg_rows, block_to_tile,
                                input_indices, factors, num_rows=num_rows,

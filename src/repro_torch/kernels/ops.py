@@ -29,12 +29,14 @@ kernel's plain PyTorch version; on CUDA tensors it launches the kernel or
 raises — there is no fallback.
 
 A launch's stages carry spans (:mod:`repro_torch.obs.trace`): ``ec.args``
-(:func:`kernel_args`), ``ec.kernel`` (the ``ec_<variant>`` call, or the
-``ref`` EC; inside it, on a card, ``_build.item_buffers`` opens ``ec.items``
-where the call was given no ``items`` and builds them) and ``ec.mask`` (the
-unvisited tiles zeroed), each ending in a synchronise of its card when the
-tracer is on. A placed shard carries its work items (``DeviceArrays.items``,
-``_build.pack_items``), which the main path passes as ``items``.
+(:func:`kernel_args`) and ``ec.kernel`` (the ``ec_<variant>`` call, or the
+``ref`` EC), each ending in a synchronise of its card when the tracer is
+on. Every kernel variant is given its shard's work items (``items``,
+``DeviceArrays.items``: ``_build.pack_items`` of its ``block_to_tile``,
+placed with the shard by ``core.mttkrp.place_shard``). A kernel writes
+only the rows of the tiles its blocks visit, into a zeroed output, so
+every other row is +0.0 (the reference masks those tiles: its TPU kernel
+leaves them uninitialised).
 """
 from __future__ import annotations
 
@@ -98,16 +100,6 @@ def kernel_kwargs_from_config(cfg, *, nmodes: int | None = None,
     )
 
 
-def _mask_unvisited(out: torch.Tensor, tile_mask: torch.Tensor | None,
-                    tile: int) -> torch.Tensor:
-    if tile_mask is None:
-        return out
-    # Tiles never visited by a block carry no contribution and must come
-    # out 0 — select, don't multiply (NaN * 0 == NaN).
-    mask = (tile_mask > 0).repeat_interleave(tile)[:, None]
-    return torch.where(mask, out, 0.0)
-
-
 def kernel_args(variant, indices, values, local_rows, block_to_tile,
                 factors, *, mode, tile, seg_starts=None, seg_rows=None):
     """The positional arguments of ``ec_<variant>`` (and of its plain
@@ -142,10 +134,10 @@ def kernel_args(variant, indices, values, local_rows, block_to_tile,
 
 
 def _run_ref(indices, values, local_rows, block_to_tile, factors, *,
-             mode, num_rows, tile, block_p, tile_mask, num_buffers,
-             seg_starts, seg_rows, items):
-    del block_to_tile, tile, block_p, tile_mask, num_buffers
-    del seg_starts, seg_rows, items
+             mode, num_rows, tile, block_p, num_buffers, seg_starts,
+             seg_rows, items):
+    del block_to_tile, tile, block_p, num_buffers, seg_starts, seg_rows
+    del items
     with obs_trace.span("ec.kernel", annotate=True, sync=(values.device,)):
         return _ref.mttkrp_local_ref(indices, values, local_rows, factors,
                                      mode, num_rows)
@@ -153,8 +145,8 @@ def _run_ref(indices, values, local_rows, block_to_tile, factors, *,
 
 def _kernel_runner(variant, kernel, takes_num_buffers):
     def run(indices, values, local_rows, block_to_tile, factors, *, mode,
-            num_rows, tile, block_p, tile_mask, num_buffers, seg_starts,
-            seg_rows, items):
+            num_rows, tile, block_p, num_buffers, seg_starts, seg_rows,
+            items):
         card = (values.device,)
         with obs_trace.span("ec.args", annotate=True, sync=card):
             args = kernel_args(variant, indices, values, local_rows,
@@ -162,10 +154,8 @@ def _kernel_runner(variant, kernel, takes_num_buffers):
                                seg_starts=seg_starts, seg_rows=seg_rows)
         extra = dict(num_buffers=num_buffers) if takes_num_buffers else {}
         with obs_trace.span("ec.kernel", annotate=True, sync=card):
-            out = kernel(*args, num_rows=num_rows, tile=tile,
-                         block_p=block_p, items=items, **extra)
-        with obs_trace.span("ec.mask", annotate=True, sync=card):
-            return _mask_unvisited(out, tile_mask, tile)
+            return kernel(*args, num_rows=num_rows, tile=tile,
+                          block_p=block_p, items=items, **extra)
     return run
 
 
@@ -191,17 +181,16 @@ def mttkrp_local(
     use_kernel: bool = True,
     variant: str | None = None,
     num_buffers: int = DEFAULT_NUM_BUFFERS,
-    tile_mask: torch.Tensor | None = None,  # (num_rows/tile,) 1=visited
     seg_starts: torch.Tensor | None = None,  # (nblocks, S+1) int32 ("sorted")
     seg_rows: torch.Tensor | None = None,    # (nblocks, S) int32 ("sorted")
     items: torch.Tensor | None = None,  # _build.pack_items(block_to_tile)
 ) -> torch.Tensor:
     """Local (one-device) EC over this device's shard. Returns
-    (num_rows, R) f32. ``items``, the shard's placed work items, spares a
-    kernel launch building them; without it the launch builds its own."""
+    (num_rows, R) f32. ``items``, the shard's placed work items, is
+    required by every kernel variant; ``ref`` needs none."""
     variant = resolve_variant(variant, use_kernel)
     return KERNEL_VARIANTS[variant](
         indices, values, local_rows, block_to_tile, factors,
         mode=mode, num_rows=num_rows, tile=tile, block_p=block_p,
-        tile_mask=tile_mask, num_buffers=num_buffers,
-        seg_starts=seg_starts, seg_rows=seg_rows, items=items)
+        num_buffers=num_buffers, seg_starts=seg_starts, seg_rows=seg_rows,
+        items=items)

@@ -206,7 +206,6 @@ def cp_step_shapes(prof, *, total: int, replication: int, rank: int = 32,
         values=st((nnz_dev,), torch.float32),
         local_rows=st((nnz_dev,), torch.int32),
         block_to_tile=st((nb,), torch.int32),
-        tile_visited=st((rows_max // tile,), torch.float32),
         seg_starts=st((nb, tile + 2), torch.int32),
         seg_rows=st((nb, tile + 1), torch.int32),
         items=st((item_words(nb),), torch.int32),

@@ -3,8 +3,8 @@
 A copy of the reference package's ``obs/trace.py``, with a second sink.
 One global :class:`Tracer` (``get_tracer()``) collects begin/end intervals
 ("spans") from every layer — plan → compile → run → sweep → shards /
-mode_update → ec (ec.args, ec.kernel ⊃ ec.items, ec.mask) / exchange /
-solve ⊃ eigh → fit, the H2D window and the rebalance probe — with a
+mode_update → ec (ec.args, ec.kernel) / exchange / solve ⊃ eigh → fit,
+the H2D window and the rebalance probe — with a
 THREAD-LOCAL span stack, so spans opened on the streamer's prefetch thread
 nest under that thread's own roots instead of corrupting the main
 thread's tree.

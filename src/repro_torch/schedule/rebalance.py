@@ -45,6 +45,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import ops as kops
 from repro_torch.obs import clock
 from repro_torch.obs import trace as obs_trace
@@ -99,23 +100,25 @@ class ReplanDecision:
 def trimmed_device_args(part, arrays, dev: int) -> dict:
     """Device ``dev``'s placed shard of one mode (``arrays``, the
     :class:`~repro_torch.core.mttkrp.DeviceArrays` that
-    ``shard_plan_mode`` put on the device) cut to its used kernel blocks —
+    ``place_shard`` put on the device) cut to its used kernel blocks —
     the work it actually executes (trailing global-pad blocks are no-op
     revisits) — keyed by ``kops.mttkrp_local``'s argument names. The cuts
     are views: nothing is copied or recomputed. The ``sorted`` variant's
     segment descriptors are per block, so the first ``blocks_true`` rows
     of the placed ones are the trimmed rows' own (the reference's
     ``_trimmed_device_args`` passes none, so its probe raises for that
-    variant); pad blocks revisit the last tile, so the placed
-    ``tile_visited`` is the trimmed blocks' set too."""
+    variant). The work items are not a view: trimming shortens the last
+    run, which can make a split run whole, so the trimmed
+    ``block_to_tile``'s own items are packed here, on its device, once per
+    call and before any timing."""
     kb = max(int(part.blocks_true[dev]), 1)
     n = kb * part.block_p
+    b2t = arrays.block_to_tile[:kb]
     return {"indices": arrays.indices[:n], "values": arrays.values[:n],
-            "local_rows": arrays.local_rows[:n],
-            "block_to_tile": arrays.block_to_tile[:kb],
-            "tile_mask": arrays.tile_visited,
+            "local_rows": arrays.local_rows[:n], "block_to_tile": b2t,
             "seg_starts": arrays.seg_starts[:kb],
-            "seg_rows": arrays.seg_rows[:kb]}
+            "seg_rows": arrays.seg_rows[:kb],
+            "items": _build.pack_items(b2t)}
 
 
 def _best_seconds(run, device: torch.device, repeats: int) -> float:

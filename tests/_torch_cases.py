@@ -6,11 +6,13 @@ tests/test_sorted_kernel.py and tests/test_kernels.py; the partitions come
 from the port's planner, which test_torch_plan.py holds bitwise against the
 reference's, so the JAX side of a parity test can take the same arrays.
 """
+import dataclasses
+
 import numpy as np
 
 from repro_torch.core.coo import SparseTensor, random_sparse
-from repro_torch.core.partition import (block_segment_descriptors,
-                                        partition_mode)
+from repro_torch.core.mttkrp import place_shard
+from repro_torch.core.partition import partition_mode
 
 SHAPE = (24, 18, 12, 10, 8)
 
@@ -263,15 +265,15 @@ PAD_STAGES = {
 
 
 def shard_arrays(part, dev=0):
-    """One device's EC inputs as numpy arrays, with the sorted variant's
-    segment descriptors."""
-    ss, sr = block_segment_descriptors(part.local_rows[dev], tile=part.tile,
-                                       block_p=part.block_p)
-    return dict(indices=part.indices[dev], values=part.values[dev],
-                local_rows=part.local_rows[dev],
-                block_to_tile=part.block_to_tile[dev],
-                tile_visited=part.tile_visited[dev], seg_starts=ss,
-                seg_rows=sr)
+    """One device's EC inputs as numpy arrays: its shard as
+    ``core.mttkrp.place_shard`` places it (the sorted variant's segment
+    descriptors and the packed work items included), and the partition's
+    ``tile_visited``, the reference's ``tile_mask``."""
+    shard, _ = place_shard(part, dev, "cpu")
+    out = {f.name: getattr(shard, f.name).numpy()
+           for f in dataclasses.fields(shard)}
+    out["tile_visited"] = part.tile_visited[dev]
+    return out
 
 
 def blocked_case(nblocks, tile, n_tiles, p, r, nin, seed):

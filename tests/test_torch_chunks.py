@@ -111,6 +111,13 @@ def _check_cover(b2t, chunk_blocks):
     ([1] * 17, 16, [(0, 16, 0), (16, 17, 1)]),
     ([2] * 3 + [0] * 40, 16, [(0, 3, -1), (3, 19, 0), (19, 35, 1),
                              (35, 43, 2)]),
+    # chunk_blocks at least the longest run: one item a run, item_starts
+    # the runs' first blocks
+    ([0, 0, 3, 3, 3, 4, 7, 7], 16, [(0, 2, -1), (2, 5, -1), (5, 6, -1),
+                                    (6, 8, -1)]),
+    ([5], 1, [(0, 1, -1)]),
+    ([], 1, []),
+    ([1, 1, 1], 3, [(0, 3, -1)]),
 ])
 def test_tile_chunks(b2t, chunk_blocks, expect):
     assert _check_cover(b2t, chunk_blocks) == expect
@@ -171,8 +178,8 @@ def _port(a, part, factors, variant, mode, num_buffers=2):
         [torch.from_numpy(f) for f in factors], mode=mode,
         num_rows=part.rows_max, tile=part.tile, block_p=part.block_p,
         variant=variant, num_buffers=num_buffers,
-        tile_mask=t["tile_visited"], seg_starts=t["seg_starts"],
-        seg_rows=t["seg_rows"]).numpy()
+        seg_starts=t["seg_starts"], seg_rows=t["seg_rows"],
+        items=t["items"]).numpy()
 
 
 def _jax(a, part, factors, variant, mode):
@@ -282,9 +289,16 @@ def _stage_slots(tile_counts):
     return int((-(-tc // S) * S).sum())
 
 
+def _chunks(b2t):
+    """The views of a shard's placed work items (``_build.item_views`` of
+    ``pack_items``), which ``api.compile``'s gauges read."""
+    b2t = torch.from_numpy(np.asarray(b2t, np.int32))
+    return _build.item_views(_build.pack_items(b2t), b2t.numel())
+
+
 def _walked(values, b2t, block_p):
-    return _build.walked_slots(torch.from_numpy(values),
-                               torch.from_numpy(b2t), block_p)
+    return _build.walked_slots(torch.from_numpy(values), _chunks(b2t),
+                               block_p)
 
 
 def _tile_counts(part, dev):
@@ -380,13 +394,13 @@ def test_split_slots_tile_counts(layout, case):
     items write, against hand counts; the walked slots of the same shard."""
     counts, pad_blocks, tile, slots, partials = SPLIT_CASES[case]
     v, b2t = _shard(counts, layout=layout, tile=tile, pad_blocks=pad_blocks)
-    assert _build.split_slots(torch.from_numpy(b2t), 16) == (slots, partials)
+    assert _build.split_slots(_chunks(b2t), 16) == (slots, partials)
     assert (slots > 0) == (longest_run(b2t) > C)
     assert _walked(v, b2t, 16) == _stage_slots(counts)
 
 
 def test_split_slots_of_no_blocks():
-    assert _build.split_slots(torch.zeros(0, dtype=torch.int32), 128) == (0, 0)
+    assert _build.split_slots(_chunks(np.zeros(0, np.int32)), 128) == (0, 0)
 
 
 @pytest.mark.parametrize("layout", ["sorted", "blocked"])
@@ -456,9 +470,9 @@ def test_compile_sets_the_split_path_gauges_of_every_mode():
         reg.set_gauge(parts, None)
     with api.compile(plan, cfg, device="cpu"):
         for (share, parts), part in zip(names, plan.modes):
-            counts = [_build.split_slots(torch.from_numpy(
-                part.block_to_tile[k]), part.block_p)
-                for k in range(part.num_devices)]
+            counts = [_build.split_slots(_chunks(part.block_to_tile[k]),
+                                         part.block_p)
+                      for k in range(part.num_devices)]
             assert reg.gauge(share) == (sum(s for s, _ in counts)
                                         / part.values.size)
             assert reg.gauge(parts) == sum(p for _, p in counts)

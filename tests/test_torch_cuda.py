@@ -59,15 +59,14 @@ def _ec(part, factors, variant, device, dev=0, mode=1, num_buffers=2,
                                mode=mode, tile=part.tile,
                                seg_starts=t["seg_starts"],
                                seg_rows=t["seg_rows"])
-        out = fn(*args, num_rows=part.rows_max, tile=part.tile,
-                 block_p=part.block_p)
-        return ops._mask_unvisited(out, t["tile_visited"], part.tile).cpu()
+        return fn(*args, num_rows=part.rows_max, tile=part.tile,
+                  block_p=part.block_p).cpu()
     return ops.mttkrp_local(
         t["indices"], t["values"], t["local_rows"], t["block_to_tile"], facs,
         mode=mode, num_rows=part.rows_max, tile=part.tile,
         block_p=part.block_p, variant=variant, num_buffers=num_buffers,
-        tile_mask=t["tile_visited"], seg_starts=t["seg_starts"],
-        seg_rows=t["seg_rows"]).cpu()
+        seg_starts=t["seg_starts"], seg_rows=t["seg_rows"],
+        items=t["items"]).cpu()
 
 
 def _assert_kernel_equals_plain(part, factors, variant, cuda, **kw):
@@ -126,34 +125,6 @@ def test_kernel_long_runs(cuda, case, variant, num_buffers):
 
 
 @pytest.mark.parametrize("variant", ["sorted", "fused", "blocked"])
-@pytest.mark.parametrize("case", ["all_padding_last_item",
-                                  "mid_run_zero_values", "hot_row_4mode"])
-def test_placed_items_give_the_bits_of_built_ones(cuda, case, variant):
-    """A launch given its shard's placed items (``DeviceArrays.items``,
-    built on the host at placement) writes the bits of the same launch
-    building its own on the card: split runs, pad slots and pad blocks."""
-    part, factors, mode, dev = {**LONG_RUN, **PAD_STAGES}[case]()
-    mesh = dm.cp_mesh(part.num_devices, part.r,
-                      devices=[cuda] * part.num_devices)
-    placed = dm.shard_plan_mode(part, mesh)[dev]
-    assert placed.items.device.type == "cuda"
-    assert torch.equal(placed.items, _build.pack_items(placed.block_to_tile))
-    facs = [torch.from_numpy(f).to(cuda) for f in factors]
-    args = (placed.indices, placed.values, placed.local_rows,
-            placed.block_to_tile, facs)
-    kw = dict(mode=mode, num_rows=part.rows_max, tile=part.tile,
-              block_p=part.block_p, variant=variant,
-              tile_mask=placed.tile_visited, seg_starts=placed.seg_starts,
-              seg_rows=placed.seg_rows)
-    before = _build.LAUNCHES[f"ec_{variant}"]
-    given = ops.mttkrp_local(*args, items=placed.items, **kw)
-    built = ops.mttkrp_local(*args, **kw)
-    assert _build.LAUNCHES[f"ec_{variant}"] == before + 2
-    assert torch.equal(given, built)
-    assert given.abs().sum() > 0
-
-
-@pytest.mark.parametrize("variant", ["sorted", "fused", "blocked"])
 def test_kernel_two_launches_same_bits(cuda, variant):
     part, factors, mode, dev = LONG_RUN["hot_row_4mode"]()
     a = _ec(part, factors, variant, cuda, dev=dev, mode=mode)
@@ -202,7 +173,7 @@ def test_item_launch_rejects_a_wrong_smem_size(cuda, monkeypatch):
                         lambda *x, **k: real(*x, **k) + 16)
     with pytest.raises(RuntimeError, match="CUDA launch failed"):
         mttkrp_fused.ec_fused(*args, num_rows=part.rows_max, tile=part.tile,
-                              block_p=part.block_p)
+                              block_p=part.block_p, items=a["items"])
 
 
 def test_blocked_launch_rejects_a_wrong_smem_size(cuda, monkeypatch):
@@ -220,7 +191,7 @@ def test_blocked_launch_rejects_a_wrong_smem_size(cuda, monkeypatch):
     before = dict(_build.LAUNCHES)
     with pytest.raises(RuntimeError, match="CUDA launch failed"):
         ec_blocked(*args, num_rows=part.rows_max, tile=part.tile,
-                   block_p=part.block_p)
+                   block_p=part.block_p, items=a["items"])
     assert _build.LAUNCHES == before
 
 
@@ -239,10 +210,12 @@ def test_ec_blocked_direct(cuda, shape, dtype):
     b2t, rit, vals, gathered = blocked_case(7, tile, 5, p, r, nin, seed=1)
     args = [torch.from_numpy(x) for x in (vals, rit, b2t)]
     rows = [torch.from_numpy(g).to(dtype) for g in gathered]
+    items = _build.pack_items(args[2])
     kw = dict(num_rows=5 * tile, tile=tile, block_p=p)
     got = ec_blocked(*[a.to(cuda) for a in args],
-                     [g.to(cuda) for g in rows], **kw).cpu()
-    ref = ec_blocked(*args, rows, **kw)
+                     [g.to(cuda) for g in rows], items=items.to(cuda),
+                     **kw).cpu()
+    ref = ec_blocked(*args, rows, items=items, **kw)
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
@@ -252,17 +225,31 @@ def test_ec_blocked_property(cuda, seed, nblocks, n_tiles):
                                             seed)
     args = [torch.from_numpy(x) for x in (vals, rit, b2t)]
     rows = [torch.from_numpy(g) for g in gathered]
+    items = _build.pack_items(args[2])
     kw = dict(num_rows=n_tiles * 8, tile=8, block_p=16)
     got = ec_blocked(*[a.to(cuda) for a in args],
-                     [g.to(cuda) for g in rows], **kw).cpu()
-    torch.testing.assert_close(got, ec_blocked(*args, rows, **kw),
-                               rtol=0, atol=0)
+                     [g.to(cuda) for g in rows], items=items.to(cuda),
+                     **kw).cpu()
+    torch.testing.assert_close(
+        got, ec_blocked(*args, rows, items=items, **kw), rtol=0, atol=0)
 
 
-def test_tile_runs_on_card(cuda):
-    b2t = np.array([0, 0, 3, 3, 3, 4, 7, 7], np.int32)
-    got = _build.tile_runs(torch.from_numpy(b2t).to(cuda)).cpu().numpy()
-    np.testing.assert_array_equal(got, [0, 2, 5, 6, 8, 8, 8, 8, 8])
+@pytest.mark.parametrize("case", sorted(LONG_RUN) + sorted(PAD_STAGES))
+def test_tile_runs_on_card(cuda, case):
+    """``tile_chunks`` cut on the card gives, bitwise, the work items
+    ``pack_items`` cuts on the host at placement (split runs, pad blocks);
+    with every run at most ``CHUNK_BLOCKS`` blocks, the items start where
+    the tile runs start."""
+    part, _, _, dev = {**LONG_RUN, **PAD_STAGES}[case]()
+    for b2t in (part.block_to_tile[dev],
+                np.array([0, 0, 3, 3, 3, 4, 7, 7], np.int32)):
+        host = _build.pack_items(torch.from_numpy(b2t))
+        c = _build.tile_chunks(torch.from_numpy(b2t).to(cuda))
+        card = torch.cat([c.item_starts, c.item_part, c.split.reshape(-1)])
+        assert card.device.type == "cuda"
+        assert torch.equal(card.cpu(), host)
+    np.testing.assert_array_equal(c.item_starts.cpu().numpy(),
+                                  [0, 2, 5, 6, 8, 8, 8, 8, 8])
 
 
 def test_kernel_rejects_bad_arguments(cuda):
@@ -271,8 +258,7 @@ def test_kernel_rejects_bad_arguments(cuda):
          for k, v in shard_arrays(part).items()}
     facs = [torch.from_numpy(f).to(cuda) for f in factors]
     kw = dict(mode=1, num_rows=part.rows_max, tile=part.tile,
-              block_p=part.block_p, variant="fused",
-              tile_mask=a["tile_visited"])
+              block_p=part.block_p, variant="fused", items=a["items"])
     with pytest.raises(TypeError):
         ops.mttkrp_local(a["indices"], a["values"].double(), a["local_rows"],
                          a["block_to_tile"], facs, **kw)

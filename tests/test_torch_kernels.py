@@ -55,8 +55,8 @@ def _both(part, factors, variant, dev=0, mode=1, num_buffers=2):
     t = {k: torch.from_numpy(v) for k, v in a.items()}
     p = ops.mttkrp_local(
         t["indices"], t["values"], t["local_rows"], t["block_to_tile"],
-        [torch.from_numpy(f) for f in factors], tile_mask=t["tile_visited"],
-        seg_starts=t["seg_starts"], seg_rows=t["seg_rows"], **kw)
+        [torch.from_numpy(f) for f in factors], seg_starts=t["seg_starts"],
+        seg_rows=t["seg_rows"], items=t["items"], **kw)
     return np.asarray(j), p.numpy()
 
 
@@ -169,7 +169,8 @@ def _blocked_both(b2t, rit, vals, gathered, *, tile, n_tiles, p, dtype):
     tdt = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
     out = ec_blocked(torch.from_numpy(vals).to(tdt), torch.from_numpy(rit),
                      torch.from_numpy(b2t),
-                     [torch.from_numpy(g).to(tdt) for g in gathered], **kw)
+                     [torch.from_numpy(g).to(tdt) for g in gathered],
+                     items=_build.pack_items(torch.from_numpy(b2t)), **kw)
     # the reference leaves unvisited tiles uninitialised: select them out
     visited = np.zeros(n_tiles, bool)
     visited[b2t] = True
@@ -269,20 +270,12 @@ def test_kernel_args_drive_the_wrapper_as_dispatch_does(variant):
     seg = dict(seg_starts=a["seg_starts"], seg_rows=a["seg_rows"])
     geo = dict(num_rows=part.rows_max, tile=part.tile, block_p=part.block_p)
     args = ops.kernel_args(variant, *arrays, mode=1, tile=part.tile, **seg)
-    got = kernel(*args, **geo)
+    got = kernel(*args, items=a["items"], **geo)
     want = ops.mttkrp_local(*arrays, mode=1, variant=variant,
-                            tile_mask=a["tile_visited"], **geo, **seg)
+                            items=a["items"], **geo, **seg)
     assert torch.equal(got, want)
     with pytest.raises(ValueError, match="launches no kernel"):
         ops.kernel_args("ref", *arrays, mode=1, tile=part.tile)
-
-
-def test_unvisited_tile_nan_is_selected_to_zero():
-    out = torch.ones(24, 3)
-    out[8:16] = float("nan")
-    got = ops._mask_unvisited(out, torch.tensor([1.0, 0.0, 1.0]), 8)
-    assert torch.isfinite(got).all()
-    assert (got[8:16] == 0).all() and (got[:8] == 1).all()
 
 
 def test_kernel_kwargs_and_autotune(monkeypatch):
@@ -340,15 +333,16 @@ def test_smem_model_and_limit():
         with pytest.raises(ValueError, match="nin and num_buffers"):
             ops.variant_smem_bytes(variant, **kw)
     b2t = torch.zeros(4, dtype=torch.int32)
+    items = _build.pack_items(b2t)
     with pytest.raises(ValueError, match="shared memory"):
         _build.item_buffers("sorted", b2t, num_rows=32, tile=32, rank=128,
-                            nin=4, num_buffers=4)
+                            nin=4, num_buffers=4, items=items)
     with pytest.raises(ValueError, match="shared memory"):
         _build.item_buffers("blocked", b2t, num_rows=64, tile=64, rank=128,
-                            nin=4, num_buffers=RING_DEPTH)
+                            nin=4, num_buffers=RING_DEPTH, items=items)
     with pytest.raises(ValueError, match="R <= 128"):
         _build.item_buffers("fused", b2t, num_rows=8, tile=8, rank=256,
-                            nin=1, num_buffers=2)
+                            nin=1, num_buffers=2, items=items)
 
 
 def test_wrappers_run_plain_version_on_cpu_without_launching():
@@ -357,18 +351,6 @@ def test_wrappers_run_plain_version_on_cpu_without_launching():
     for variant in ("sorted", "fused", "blocked"):
         _both(part, factors, variant)
     assert _build.LAUNCHES == before
-
-
-@pytest.mark.parametrize("b2t,expect", [
-    ([0, 0, 3, 3, 3, 4, 7, 7], [0, 2, 5, 6, 8, 8, 8, 8, 8]),
-    ([5], [0, 1]),
-    ([], [0]),
-    ([1, 1, 1], [0, 3, 3, 3]),
-])
-def test_tile_runs(b2t, expect):
-    got = _build.tile_runs(torch.tensor(b2t, dtype=torch.int32))
-    assert got.dtype == torch.int32
-    assert got.tolist() == expect
 
 
 def test_isolation_from_jax_and_the_reference():

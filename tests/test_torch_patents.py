@@ -74,12 +74,12 @@ def test_the_year_mode_runs_wholly_on_the_split_path(seed):
     runs = chunks.split[:, chunks.split[0] >= 0]
     assert runs.shape[1] == 6
     assert sorted(runs[2].tolist()) == list(range(6))
-    slots, partials = _build.split_slots(b2t, year.block_p)
+    slots, partials = _build.split_slots(chunks, year.block_p)
     assert slots == year.values[0].size
     assert partials == int(runs[1].sum()) >= 2 * 6
     for mode in plan.modes[1:]:
-        assert _build.split_slots(torch.from_numpy(mode.block_to_tile[0]),
-                                  mode.block_p) == (0, 0)
+        assert _build.split_slots(_build.tile_chunks(torch.from_numpy(
+            mode.block_to_tile[0])), mode.block_p) == (0, 0)
 
 
 def _gaps(seed, monkeypatch=None, fault=None):

@@ -3,15 +3,17 @@
 A placed shard carries its work items (``DeviceArrays.items``): the
 ``(item_starts, item_part, split)`` of ``_build.tile_chunks`` on its
 ``block_to_tile``, packed in one int32 tensor (``_build.pack_items``) and
-computed once at placement, so no EC launch of a sweep builds them. Held
-here: the placed items are bitwise ``tile_chunks`` of the placed
-``block_to_tile`` on resident shards (the split-run and pad-slot cases, the
-benchmark configurations' ``tests`` cuts), on streamed windows with and
-without the window spill, and on the modes re-placed after a rebalance
-migration; a sweep counts ``nmodes × devices`` launches that were given
-their items (``ec.items.placed``) and none that built them
-(``ec.items.built``); the rebalancer's probe and a direct kernel call
-build theirs, and count so.
+computed once at placement (``core.mttkrp.place_shard``), and every EC
+launch is given them. Held here: the placed items are bitwise
+``tile_chunks`` of the placed ``block_to_tile`` on resident shards (the
+split-run and pad-slot cases, the benchmark configurations' ``tests``
+cuts), on streamed windows with and without the window spill, and on the
+modes re-placed after a rebalance migration; a sweep, the rebalancer's
+probe, the tuner and the audit count one ``ec.items.placed`` a launch; a
+launch without items is refused. And with no mask after the EC, every
+output row outside the tiles a shard's blocks visit is +0.0, a NaN in
+each input factor's row 0 (the pads' row) notwithstanding, on every shard
+producer and every variant.
 """
 import importlib.util
 import json
@@ -25,23 +27,25 @@ torch = pytest.importorskip("torch")
 from _torch_cases import LONG_RUN, PAD_STAGES, skewed_tensor  # noqa: E402
 import repro_torch.api as api  # noqa: E402
 from repro_torch import obs  # noqa: E402
+from repro_torch.analysis import hlo_audit  # noqa: E402
+from repro_torch.core import als  # noqa: E402
 from repro_torch.core import mttkrp as dm  # noqa: E402
 from repro_torch.core.coo import SparseTensor  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.core.partition import build_plan  # noqa: E402
+from repro_torch.kernels import _build, autotune  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.mttkrp_sorted import ec_sorted  # noqa: E402
+from repro_torch.schedule import rebalance as reb  # noqa: E402
 from repro_torch.sparse import stream as st  # noqa: E402
 from repro_torch.store import (TensorStore, build_plan_from_store,  # noqa: E402
                                split_mode_super_shards, write_store_from_coo)
 
 ROOT = Path(__file__).resolve().parents[1]
 CONFIGS = ["amazon-r32", "twitch-r32", "patents-r32"]
-PLACED, BUILT = "ec.items.placed", "ec.items.built"
+VARIANTS = ["sorted", "fused", "blocked", "ref"]
 
 
 def _counts():
-    reg = obs.get_registry()
-    return reg.counter(PLACED), reg.counter(BUILT)
+    return obs.get_registry().counter("ec.items.placed")
 
 
 def _assert_placed_items(dev):
@@ -102,9 +106,9 @@ def test_a_sweep_takes_every_shards_placed_items(name, devices):
             assert len(mode) == devices
             for dev in mode:
                 _assert_placed_items(dev)
-        placed, built = _counts()
+        placed = _counts()
         solver.sweep()
-        assert _counts() == (placed + t.nmodes * devices, built)
+        assert _counts() == placed + t.nmodes * devices
 
 
 def _store_plan(tmp_path):
@@ -159,12 +163,12 @@ def _rebalance_cfg(rebalance):
 
 def test_migrated_modes_are_re_placed_with_their_items():
     """After the rebalancer migrates nonzeros, the re-placed modes carry
-    the new plan's items; its probes, on block-trimmed views, built their
-    own."""
+    the new plan's items; its probes, on block-trimmed views, are given
+    the trimmed blocks' own, and count as placed too."""
     t = skewed_tensor()
     cfg = _rebalance_cfg("on")
     solver = api.compile(api.plan(t, cfg), cfg, device="cpu")
-    placed, built = _counts()
+    placed = _counts()
     sweeps = 5
     solver.run(sweeps)
     moved = [e for e in solver.schedule_events if e["moved_nnz"] > 0]
@@ -177,48 +181,23 @@ def test_migrated_modes_are_re_placed_with_their_items():
     probes = sum(sum(len(p) for p in x["probe_s"].values())
                  for x in solver.rebalance_timings)
     assert probes > 0
-    p1, b1 = _counts()
-    assert p1 - placed == sweeps * t.nmodes * 4
-    assert b1 - built >= probes
+    assert _counts() - placed >= sweeps * t.nmodes * 4 + probes
     solver.close()
 
 
-def test_a_call_without_items_builds_and_counts_them():
-    part, factors, mode, dev = LONG_RUN["hot_row_3mode"]()
-    placed = dm.shard_plan_mode(part, dm.cp_mesh(1, 1, devices=["cpu"]))[0]
-    facs = [torch.from_numpy(f) for f in factors]
-    kw = dict(mode=mode, num_rows=part.rows_max, tile=part.tile,
-              block_p=part.block_p, variant="sorted",
-              tile_mask=placed.tile_visited, seg_starts=placed.seg_starts,
-              seg_rows=placed.seg_rows)
-    args = (placed.indices, placed.values, placed.local_rows,
-            placed.block_to_tile, facs)
-    p0, b0 = _counts()
-    given = ops.mttkrp_local(*args, items=placed.items, **kw)
-    assert _counts() == (p0 + 1, b0)
-    built = ops.mttkrp_local(*args, **kw)
-    assert _counts() == (p0 + 1, b0 + 1)
-    assert torch.equal(given, built)
-    kargs = ops.kernel_args("sorted", *args, mode=mode, tile=part.tile,
-                            seg_starts=placed.seg_starts,
-                            seg_rows=placed.seg_rows)
-    ec_sorted(*kargs, num_rows=part.rows_max, tile=part.tile,
-              block_p=part.block_p)
-    assert _counts() == (p0 + 1, b0 + 2)
-
-
 def test_item_buffers_takes_placed_items_as_they_are():
-    """Given the placed items, ``item_buffers`` opens no ``ec.items`` span
-    and hands out views of them, and refuses items of another shape."""
+    """``item_buffers`` opens no span and hands out views of the placed
+    items, and takes no call without them; a launch refuses items of
+    another shape."""
     from repro_torch.obs import trace as obs_trace
     b2t = torch.tensor([0] * 20 + [1, 1, 2], dtype=torch.int32)
     items = _build.pack_items(b2t)
+    geo = dict(num_rows=24, tile=8, rank=4, nin=2, num_buffers=2)
     obs.reset()
     obs_trace.enable()
     try:
         out, chunks, partials, _ = _build.item_buffers(
-            "sorted", b2t, num_rows=24, tile=8, rank=4, nin=2,
-            num_buffers=2, items=items)
+            "sorted", b2t, items=items, **geo)
         assert obs_trace.get_tracer().records() == []
     finally:
         obs.reset()
@@ -227,6 +206,134 @@ def test_item_buffers_takes_placed_items_as_they_are():
     for a, b in zip(chunks[:3], want[:3], strict=True):
         assert torch.equal(a, b)
     assert partials.shape == (want.n_parts, 8, 4) and not out.any()
+    with pytest.raises(TypeError, match="items"):
+        _build.item_buffers("sorted", b2t, **geo)
     with pytest.raises(ValueError, match="items has shape"):
-        _build.item_buffers("sorted", b2t[:-1], num_rows=24, tile=8, rank=4,
-                            nin=2, num_buffers=2, items=items)
+        _build.count_items(items, b2t.numel() - 1, b2t.device)
+
+
+# -- the EC's callers outside a sweep ----------------------------------------
+
+def _probe():
+    plan = build_plan(skewed_tensor(), 4, strategy="equal_nnz",
+                      layout="sorted")
+    part = plan.modes[0]
+    mesh = dm.cp_mesh(4, part.r, devices=["cpu"] * 4)
+    factors = als.init_factors(plan, 8, seed=1, devices=mesh.devices)
+    arrays = dm.shard_plan_mode(part, mesh)
+    reb.measure_mode_device_times(
+        part, factors, dict(use_kernel=True, variant="sorted",
+                            num_buffers=2), arrays=arrays, repeats=2)
+
+
+def _tuner():
+    t, part = autotune.representative_shard(3, 2048, layout="sorted")
+    autotune._time_candidate(t, part, 8, "sorted", 2, 2, torch.device("cpu"))
+
+
+def _audit():
+    hlo_audit.ec_recorded_ops("sorted", nmodes=3, rank=8, device="cpu")
+
+
+@pytest.mark.parametrize("caller", ["probe", "tuner", "audit"])
+def test_callers_outside_a_sweep_launch_with_placed_items(caller,
+                                                          monkeypatch):
+    """The rebalancer's probe, the tuner and the audit take their shards
+    from ``place_shard`` (the probe a trimmed view of one, with its own
+    items): each of their EC calls counts one ``ec.items.placed``."""
+    calls = []
+    local = ops.mttkrp_local
+
+    def counted(*args, **kw):
+        assert kw["items"] is not None
+        calls.append(kw["variant"])
+        return local(*args, **kw)
+
+    monkeypatch.setattr(ops, "mttkrp_local", counted)
+    placed = _counts()
+    {"probe": _probe, "tuner": _tuner, "audit": _audit}[caller]()
+    assert calls and set(calls) == {"sorted"}
+    assert _counts() - placed == len(calls)
+
+
+# -- no mask: the rows of unvisited tiles are +0.0 ---------------------------
+
+def _resident_plan():
+    return build_plan(skewed_tensor(), 4, strategy="equal_nnz",
+                      layout="sorted")
+
+
+def _resident(tmp_path):
+    plan = _resident_plan()
+    return [(plan, d, dm.shard_plan_mode(
+        part, dm.cp_mesh(4, part.r, devices=["cpu"] * 4)))
+        for d, part in enumerate(plan.modes)]
+
+
+def _windows(tmp_path):
+    """Every window of every mode, the empty ``(0, 0)`` ones included."""
+    plan, sps, mesh = _store_plan(tmp_path)
+    out = [(plan, d, dm.shard_super_shard(plan.modes[d], sp, k, mesh).arrays)
+           for d, sp in enumerate(sps) for k in range(sp.num_shards)]
+    assert any(t0 == t1 for sp in sps for w in sp.windows for t0, t1 in w)
+    return out
+
+
+def _migrated(tmp_path):
+    plan = _resident_plan()
+    migs = reb.plan_group_migrations(plan.modes[0],
+                                     np.array([1.0, 2.0, 2.0, 8.0]),
+                                     migration_budget=0.3)
+    new, applied = reb.apply_rebalance(plan, reb.ReplanDecision(
+        epoch=plan.rebalance_epoch, sweep=1, triggered=True, imbalance={},
+        modelled_imbalance={}, migrations=tuple(migs)))
+    assert sum(a["moved_nnz"] for a in applied) > 0
+    part = new.modes[0]
+    return [(new, 0, dm.shard_plan_mode(
+        part, dm.cp_mesh(4, part.r, devices=["cpu"] * 4)))]
+
+
+def _trimmed(tmp_path):
+    out = [(plan, d, [reb.trimmed_device_args(plan.modes[d], dev, k)
+                      for k, dev in enumerate(shards)])
+           for plan, d, shards in _resident(tmp_path)]
+    assert any((p.blocks_true < p.nblocks).any() for p in out[0][0].modes)
+    return out
+
+
+SHARDS = {"resident": _resident, "streamed_window": _windows,
+          "migrated": _migrated, "probe_trimmed": _trimmed}
+EC_ARGS = ("indices", "values", "local_rows", "block_to_tile", "seg_starts",
+           "seg_rows", "items")
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+@pytest.mark.parametrize("producer", sorted(SHARDS))
+def test_rows_of_unvisited_tiles_are_positive_zero(producer, variant,
+                                                   tmp_path):
+    """Every output row outside the tiles of a shard's ``block_to_tile``
+    is +0.0 bit for bit, with NaN in row 0 (the pads' row) of every input
+    factor: the EC writes only its blocks' tiles into a zeroed output, so
+    the mask the reference applies after its kernel would change no bit."""
+    checked = 0
+    for plan, mode, shards in SHARDS[producer](tmp_path):
+        part = plan.modes[mode]
+        factors = als.init_factors(plan, 4, seed=2,
+                                   devices=["cpu"] * len(shards))
+        for k, dev in enumerate(shards):
+            a = dev if isinstance(dev, dict) else \
+                {n: getattr(dev, n) for n in EC_ARGS}
+            facs = [f[k].clone() for f in factors]
+            for w, f in enumerate(facs):
+                if w != mode:
+                    f[0] = float("nan")
+            out = ops.mttkrp_local(
+                factors=facs, mode=mode, num_rows=part.rows_max,
+                tile=part.tile, block_p=part.block_p, variant=variant, **a)
+            visited = torch.zeros(part.rows_max // part.tile,
+                                  dtype=torch.bool)
+            visited[a["block_to_tile"].long()] = True
+            outside = ~visited.repeat_interleave(part.tile)
+            assert (out[outside].view(torch.int32) == 0).all()
+            checked += int(outside.sum())
+    assert checked > 0

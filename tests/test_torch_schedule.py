@@ -33,6 +33,7 @@ from repro_torch import schedule as t_schedule  # noqa: E402
 from repro_torch.core import coo as t_coo  # noqa: E402
 from repro_torch.core import mttkrp as t_dm  # noqa: E402
 from repro_torch.core import partition as t_part  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ops as t_ops  # noqa: E402
 from repro_torch.launch import decompose as launcher  # noqa: E402
 from repro_torch.schedule import cost as t_cost  # noqa: E402
@@ -320,7 +321,7 @@ def _padded_factors(plan, rank, devices, seed=0):
 def test_probe_trims_each_shard(variant):
     """Each device's trimmed shard is a set of views of its placed shard
     (its first ``blocks_true`` blocks) whose ``sorted`` descriptors and
-    visited tiles equal those recomputed from the trimmed rows alone; it
+    work items equal those recomputed from the trimmed rows alone; it
     gives the full shard's EC on every tile it visits and 0 elsewhere; the
     probe's times are positive, one per device, and neither the factors nor
     the placed shards change."""
@@ -352,16 +353,16 @@ def test_probe_trims_each_shard(variant):
             np.testing.assert_array_equal(a["seg_starts"].numpy(), ss)
             np.testing.assert_array_equal(a["seg_rows"].numpy(), sr)
             np.testing.assert_array_equal(a["local_rows"].numpy(), rows)
-            visited = np.zeros(part.rows_max // part.tile, np.float32)
-            visited[part.block_to_tile[dev, :kb]] = 1.0
-            np.testing.assert_array_equal(a["tile_mask"].numpy(), visited)
+            items = _build.pack_items(torch.from_numpy(
+                part.block_to_tile[dev, :kb]))
+            assert torch.equal(a["items"], items)
             facs = [f[dev] for f in factors]
             geo = dict(mode=mode, num_rows=part.rows_max, tile=part.tile,
                        block_p=part.block_p, **kw)
             got = t_ops.mttkrp_local(factors=facs, **a, **geo)
             want = t_ops.mttkrp_local(
                 d.indices, d.values, d.local_rows, d.block_to_tile, facs,
-                tile_mask=d.tile_visited, seg_starts=d.seg_starts,
+                items=d.items, seg_starts=d.seg_starts,
                 seg_rows=d.seg_rows, **geo)
             np.testing.assert_array_equal(got.numpy(), want.numpy())
         times = t_reb.measure_mode_device_times(part, factors, kw,

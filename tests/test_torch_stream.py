@@ -74,7 +74,7 @@ def test_placed_shards_are_walked_not_copied(plan4, mesh, monkeypatch):
     import copy
     dev = dm.shard_plan_mode(plan4.modes[0], mesh)[0]
     fields = (dev.indices, dev.values, dev.local_rows, dev.block_to_tile,
-              dev.tile_visited, dev.seg_starts, dev.seg_rows, dev.items)
+              dev.seg_starts, dev.seg_rows, dev.items)
     assert all(a is b for a, b in zip(dev.tensors(), fields, strict=True))
 
     def no_copy(*a, **k):

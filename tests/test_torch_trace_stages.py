@@ -4,9 +4,9 @@ One span mechanism with two sinks: with the tracer on a span is recorded
 (and ``sync=`` waits for its cards before it ends); with the tracer off an
 annotated span is a bare ``torch.profiler`` scope while a profiler
 records, and the shared no-op otherwise. A sweep runs one path, traced or
-not: sweep → {shards, mode_update → {ec → {ec.args, ec.kernel, ec.mask},
-exchange, solve → eigh}, fit}, with the untraced run's bits on every EC
-variant, and the exchange no longer holds the solve (also streamed).
+not: sweep → {shards, mode_update → {ec → {ec.args, ec.kernel}, exchange,
+solve → eigh}, fit}, with the untraced run's bits on every EC variant, and
+the exchange no longer holds the solve (also streamed).
 """
 import json
 import time
@@ -19,10 +19,8 @@ torch = pytest.importorskip("torch")
 import repro_torch.api as api  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.core.coo import random_sparse  # noqa: E402
-from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.obs import trace as obs_trace  # noqa: E402
-from repro_torch.obs.export import (chrome_trace, span_counts,  # noqa: E402
-                                    validate_trace)
+from repro_torch.obs.export import chrome_trace, validate_trace  # noqa: E402
 from repro_torch.store import TensorStore, write_store_from_coo  # noqa: E402
 
 CPU = torch.profiler.ProfilerActivity.CPU
@@ -31,6 +29,14 @@ CARDS = [torch.device("cuda", 0), torch.device("cuda", 1),
 VARIANTS = ["sorted", "fused", "blocked", "ref"]
 EC_STAGES = {"ref": ["ec.kernel"]}
 SWEEPS = 2
+# The sweeps over which a traced run's top-level coverage is judged. The
+# gap between ``compile`` and ``run`` holds a fraction of a millisecond of
+# program work, but a pause of the host there (a garbage collection, or
+# the process descheduled in a parallel test run) once took 31 % of a
+# two-sweep run's wall time, 44 ms. Over this many sweeps the fastest
+# variant's spans take ~0.3 s alone and several times that under such a
+# load, so no one pause of that size decides the 95 %.
+COVERAGE_SWEEPS = 128
 
 
 @pytest.fixture(autouse=True)
@@ -101,19 +107,6 @@ def test_sync_waits_for_each_card_before_the_span_ends(monkeypatch):
     assert rec["t1"] - rec["t0"] >= 0.04
 
 
-def test_item_buffers_opens_one_ec_items_span():
-    obs_trace.enable()
-    b2t = torch.tensor([0] * 20 + [1, 1, 2], dtype=torch.int32)
-    out, chunks, partials, smem = _build.item_buffers(
-        "sorted", b2t, num_rows=24, tile=8, rank=4, nin=2, num_buffers=2)
-    assert span_counts(obs_trace.get_tracer().records()) == {"ec.items": 1}
-    want = _build.tile_chunks(b2t)
-    assert torch.equal(chunks.item_starts, want.item_starts)
-    assert torch.equal(chunks.split, want.split)
-    assert out.shape == (24, 4) and not out.any()
-    assert partials.shape == (want.n_parts, 8, 4) and smem > 0
-
-
 # -- the sweep's stages ------------------------------------------------------
 
 def _cfg(trace, variant, **over):
@@ -125,10 +118,10 @@ def _cfg(trace, variant, **over):
         **over})
 
 
-def _run(t, cfg):
+def _run(t, cfg, sweeps=SWEEPS):
     with api.compile(api.plan(t, cfg, device="cpu"), cfg,
                      device="cpu") as s:
-        return s.run(SWEEPS)
+        return s.run(sweeps)
 
 
 def _children(records) -> dict:
@@ -142,11 +135,12 @@ def _children(records) -> dict:
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_traced_run_records_every_stage_with_the_untraced_bits(variant):
     """Each sweep and mode records the whole tree of stages, the exchange
-    and the solve apart, at ≥ 95 % coverage, and the traced run's fits
-    and factors are the untraced run's bitwise."""
+    and the solve apart, at ≥ 95 % coverage over ``COVERAGE_SWEEPS``
+    sweeps, and the traced run's fits and factors are the untraced run's
+    bitwise."""
     t = random_sparse((30, 20, 10), 600, seed=1)
-    plain = _run(t, _cfg(False, variant))
-    traced = _run(t, _cfg(True, variant))
+    plain = _run(t, _cfg(False, variant), COVERAGE_SWEEPS)
+    traced = _run(t, _cfg(True, variant), COVERAGE_SWEEPS)
     assert traced.fits == plain.fits
     for a, b in zip(plain.factors, traced.factors):
         np.testing.assert_array_equal(a, b)
@@ -155,15 +149,14 @@ def test_traced_run_records_every_stage_with_the_untraced_bits(variant):
     res = validate_trace(chrome_trace(records), min_coverage=0.95)
     assert res["ok"], res["problems"]
     kids = _children(records)
-    leaves = {"shards", "exchange", "eigh", "fit", "ec.args", "ec.kernel",
-              "ec.mask"}
-    ec = EC_STAGES.get(variant, ["ec.args", "ec.kernel", "ec.mask"])
+    leaves = {"shards", "exchange", "eigh", "fit", "ec.args", "ec.kernel"}
+    ec = EC_STAGES.get(variant, ["ec.args", "ec.kernel"])
     n = t.nmodes
     seen = {"sweep": 0, "mode_update": 0}
     for r in records:
         got = kids.get(r["id"], [])
         if r["name"] == "run":
-            assert got == ["sweep"] * SWEEPS
+            assert got == ["sweep"] * COVERAGE_SWEEPS
         elif r["name"] == "sweep":
             assert got == ["shards"] + ["mode_update"] * n + ["fit"]
         elif r["name"] == "mode_update":
@@ -175,9 +168,9 @@ def test_traced_run_records_every_stage_with_the_untraced_bits(variant):
         else:
             assert r["name"] in leaves | {"compile"} and not got, r
         seen[r["name"]] = seen.get(r["name"], 0) + 1
-    assert seen["sweep"] == SWEEPS and seen["mode_update"] == n * SWEEPS
-    assert all(seen[name] == n * SWEEPS
-               for name in ("ec", "exchange", "solve", "eigh", *ec))
+    assert seen["sweep"] == COVERAGE_SWEEPS
+    assert all(seen[name] == n * COVERAGE_SWEEPS for name in
+               ("mode_update", "ec", "exchange", "solve", "eigh", *ec))
 
 
 def test_profiled_untraced_run_carries_the_stages_as_scopes():
@@ -193,8 +186,8 @@ def test_profiled_untraced_run_carries_the_stages_as_scopes():
     counts: dict = {}
     for e in prof.events():
         counts[e.name] = counts.get(e.name, 0) + 1
-    per_mode = ("mode_update", "ec", "ec.args", "ec.kernel", "ec.mask",
-                "exchange", "solve", "eigh")
+    per_mode = ("mode_update", "ec", "ec.args", "ec.kernel", "exchange",
+                "solve", "eigh")
     assert {k: counts.get(k) for k in ("sweep", "shards", "fit")} == \
         dict.fromkeys(("sweep", "shards", "fit"), SWEEPS)
     assert {k: counts.get(k) for k in per_mode} == \
