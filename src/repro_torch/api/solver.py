@@ -60,6 +60,8 @@ stages carry spans (``sweep`` ⊃ {``shards``, ``mode_update`` ⊃ {``ec``,
 :mod:`repro_torch.kernels.ops`). A resident compile sets the global
 registry's gauges per mode: ``ec.walked_slot_share.mode<d>``, the share of
 the placed slots that the EC's item kernel walks;
+``ec.step_fill_share.mode<d>``, the share of the lane groups of
+``ec_sorted``'s steps that hold a walked slot;
 ``ec.split_slot_share.mode<d>``, the share of the placed slots in tile runs
 of more than ``CHUNK_BLOCKS`` blocks, which the EC splits into work items
 that write partials for ``ec_combine`` to add; and ``ec.partials.mode<d>``,
@@ -134,25 +136,31 @@ def validate_factor_payload(factors, lam, *, shape, rank,
                          f"({rank},)")
 
 
-def _gauge_slots(mode: int, block_p: int, shards) -> None:
+def _gauge_slots(mode: int, block_p: int, rank: int, shards) -> None:
     """Set the global registry's gauges of the mode's placed shards, counted
     on host copies (so no device memory) of their values and placed work
     items (``_build.item_views``): ``ec.walked_slot_share.mode<mode>``,
     the slots the EC's item kernel walks (``_build.walked_slots``) over the
-    slots placed; ``ec.split_slot_share.mode<mode>``, the slots in runs the
-    EC splits into partials (``_build.split_slots``) over the slots placed;
-    and ``ec.partials.mode<mode>``, the partials its launches write."""
-    walked = split = partials = placed = 0
+    slots placed; ``ec.step_fill_share.mode<mode>``, those slots over the
+    lane-group positions of the steps ``ec_sorted``'s kernel walks them in
+    at ``rank`` (``_build.step_slots``; 1 where it walks none);
+    ``ec.split_slot_share.mode<mode>``, the slots in runs the EC splits into
+    partials (``_build.split_slots``) over the slots placed; and
+    ``ec.partials.mode<mode>``, the partials its launches write."""
+    walked = steps = split = partials = placed = 0
     for dev in shards:
         values = dev.values.cpu()
         chunks = _build.item_views(dev.items.cpu(),
                                    dev.block_to_tile.numel())
         walked += _build.walked_slots(values, chunks, block_p)
+        steps += _build.step_slots(values, chunks, block_p, rank)
         s, p = _build.split_slots(chunks, block_p)
         split, partials = split + s, partials + p
         placed += values.numel()
     reg = obs.get_registry()
     reg.set_gauge(f"ec.walked_slot_share.mode{mode}", walked / placed)
+    reg.set_gauge(f"ec.step_fill_share.mode{mode}",
+                  walked / steps if steps else 1.0)
     reg.set_gauge(f"ec.split_slot_share.mode{mode}", split / placed)
     reg.set_gauge(f"ec.partials.mode{mode}", partials)
 
@@ -242,7 +250,8 @@ class CPSolver:
                 plan, mesh, exchange_spec=self.exchange_spec,
                 **self._kernel_kw)
             for d in range(plan.nmodes):  # placed now, as compile promises
-                _gauge_slots(d, plan.modes[d].block_p, self.streamer.get(d))
+                _gauge_slots(d, plan.modes[d].block_p, config.rank,
+                             self.streamer.get(d))
         self.rebalancer = None
         if config.schedule.telemetry_enabled:
             sched = config.schedule

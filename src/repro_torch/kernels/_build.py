@@ -20,8 +20,9 @@ consecutive blocks of one output tile into work items of at most
 :func:`pack_items` puts those items in the one int32 tensor a placed shard
 carries (:func:`item_views` reads it back), which every launch is given,
 and :func:`count_items` counts those launches; :func:`walked_slots` counts
-the slots those items walk, and :func:`split_slots` the slots and partials
-of the runs they split.
+the slots those items walk, :func:`step_slots` the lane-group positions of
+the steps ``ec_sorted``'s kernel walks them in, and :func:`split_slots` the
+slots and partials of the runs they split.
 """
 from __future__ import annotations
 
@@ -43,8 +44,8 @@ __all__ = ["SOURCES", "SMEM_LIMIT", "MAX_NUM_BUFFERS", "LAUNCHES",
            "check_blocking", "require", "item_buffers",
            "tile_chunks", "TileChunks", "pack_items",
            "item_words", "item_views", "count_items", "walked_slots",
-           "split_slots", "CHUNK_BLOCKS",
-           "STAGE_SLOTS", "ITEM_WARPS", "MAX_ITEM_RANK",
+           "step_slots", "step_width", "split_slots", "CHUNK_BLOCKS",
+           "STAGE_SLOTS", "STEP_FLOATS", "ITEM_WARPS", "MAX_ITEM_RANK",
            "variant_smem_bytes", "copy_width", "launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -57,7 +58,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # Shared memory one CUDA block may use on Hopper (227 KiB).
 SMEM_LIMIT = 232_448
 # The TPU kernels' DMA ring depth range (mttkrp_sorted.py:157-159): the
-# depth of the item kernel's cp.async ring of input rows.
+# depth of the one-hot item kernel's cp.async ring of input rows, and the
+# steps ec_sorted's kernel keeps its loads ahead in registers.
 MAX_NUM_BUFFERS = 4
 # Kernel blocks per work item of the EC kernels. A tile's run of more
 # blocks is split into items of this many (the last may be shorter), whose
@@ -66,11 +68,13 @@ MAX_NUM_BUFFERS = 4
 # the smoke's hottest run (~27 k blocks) in ~1,700 items while an item
 # still amortises its tile write-out over 2,048 slots at block_p 128.
 CHUNK_BLOCKS = 16
-# Mirrors of ec_common.cuh: slots per ring stage, warps (work items) per
-# CUDA block, and the largest rank (columns per lane times 32).
+# Mirrors of ec_common.cuh: slots per ring stage of the one-hot item kernel,
+# warps (work items) per CUDA block, and the largest rank (columns per lane
+# times 32); and of ec_sorted.cu: the floats of a step's staging row.
 STAGE_SLOTS = 8
 ITEM_WARPS = 4
 MAX_ITEM_RANK = 128
+STEP_FLOATS = 128
 
 LAUNCHES = {"ec_sorted": 0, "ec_fused": 0, "ec_blocked": 0}
 
@@ -364,38 +368,71 @@ def count_items(items: torch.Tensor, nblocks: int,
     obs.get_registry().inc("ec.items.placed")
 
 
-def walked_slots(values: torch.Tensor, chunks: TileChunks,
-                 block_p: int) -> int:
-    """The slots the EC item kernel walks on one shard, by the kernel's own
-    rule (``csrc/ec_common.cuh``): each work item (``chunks``, the shard's
-    :func:`item_views`) walks its stages of :data:`STAGE_SLOTS` slots up to
-    and including the stage that holds its last slot whose value is not 0,
-    and none after it; an item whose values are all 0 walks none. So the
-    count is a multiple of :data:`STAGE_SLOTS` wherever ``block_p`` is.
-    Pad slots, value 0, lie at the end of a tile's run; a zero value before
-    a run's last nonzero is walked. Plain torch ops on the tensors' device,
-    ending in a host read: for placement, not for a sweep."""
+def _item_walks(values: torch.Tensor, chunks: TileChunks,
+                block_p: int) -> torch.Tensor:
+    """Per work item (``chunks``, the shard's :func:`item_views`), the
+    slots up to and including its last slot whose value is not 0: its
+    earlier blocks in full, then its last such block's slots up to that
+    one; 0 for an item whose values are all 0."""
     nb = chunks.item_part.numel()
     if nb == 0:
-        return 0
+        return torch.zeros(0, dtype=torch.int64)
     nz = values[:nb * block_p].reshape(nb, block_p) != 0
-    # each block's last slot that is not 0, and the slots up to the end of
-    # its stage
+    # each block's last slot that is not 0
     last = block_p - 1 - nz.flip(1).to(torch.uint8).argmax(1)
-    upto = torch.clamp((last // STAGE_SLOTS + 1) * STAGE_SLOTS, max=block_p)
     starts = chunks.item_starts.long()
     first = torch.zeros(nb + 1, dtype=torch.int64, device=nz.device)
     first[starts] = 1
     item_id = torch.cumsum(first[:nb], 0) - 1
     blocks = torch.arange(nb, device=nz.device)
     # were the item to end in this block: its earlier blocks in full, then
-    # this block's stages
-    walk = torch.where(nz.any(1), (blocks - starts[item_id]) * block_p + upto,
-                       0)
+    # this block up to its last nonzero
+    walk = torch.where(nz.any(1),
+                       (blocks - starts[item_id]) * block_p + last + 1, 0)
     per_item = torch.zeros(nb, dtype=torch.int64, device=nz.device)
     per_item.scatter_reduce_(0, item_id, walk, reduce="amax",
                              include_self=True)
-    return int(per_item.sum())
+    return per_item
+
+
+def walked_slots(values: torch.Tensor, chunks: TileChunks,
+                 block_p: int) -> int:
+    """The slots ``ec_sorted``'s kernel walks on one shard, by its own rule
+    (``csrc/ec_sorted.cu``): each work item (``chunks``, the shard's
+    :func:`item_views`) walks its slots up to and including its last slot
+    whose value is not 0, and none after it; an item whose values are all 0
+    walks none. (The one-hot variants' kernel walks on to the end of that
+    slot's stage of :data:`STAGE_SLOTS`.) Pad slots, value 0, lie at the end
+    of a tile's run; a zero value before a run's last nonzero is walked.
+    Plain torch ops on the tensors' device, ending in a host read: for
+    placement, not for a sweep."""
+    return int(_item_walks(values, chunks, block_p).sum())
+
+
+def step_width(rank: int) -> int:
+    """The slots one step of ``ec_sorted``'s kernel takes, one a lane
+    group: a lane holds 4 columns of a factor row where ``rank % 4 == 0``
+    (the 16-byte rows :func:`copy_width` finds on placed factors), else
+    one, so a group is ``rank / 4`` or ``min(rank, 32)`` lanes and a warp
+    of 32 holds ``32 // group`` of them: 4 at rank 32, 2 at 64, 1 at
+    128."""
+    if not 1 <= rank <= MAX_ITEM_RANK:
+        raise ValueError(f"ec_sorted takes R in [1, {MAX_ITEM_RANK}], got "
+                         f"{rank}")
+    return 32 // (rank // 4 if rank % 4 == 0 else min(rank, 32))
+
+
+def step_slots(values: torch.Tensor, chunks: TileChunks, block_p: int,
+               rank: int) -> int:
+    """The lane-group positions of the steps ``ec_sorted``'s kernel runs on
+    one shard, by its own rule: each work item walks its
+    :func:`walked_slots` in steps of :func:`step_width` slots, the last step
+    of an item as wide as the others. So ``walked_slots / step_slots`` is
+    the share of the steps' lane groups that hold a slot. Plain torch ops
+    ending in a host read: for placement, not for a sweep."""
+    g = step_width(rank)
+    return int(((_item_walks(values, chunks, block_p) + g - 1) // g * g)
+               .sum())
 
 
 def split_slots(chunks: TileChunks, block_p: int) -> tuple[int, int]:
@@ -423,30 +460,34 @@ def variant_smem_bytes(variant: str, *, tile: int, rank: int,
 
     Every kernel variant (``nin`` and ``num_buffers`` required) runs
     :data:`ITEM_WARPS` work items per CUDA block, each warp owning a region
-    of 4-byte words, every part rounded up to 16 bytes: the ``cp.async``
-    ring of ``num_buffers`` stages of :data:`STAGE_SLOTS` slots, each slot's
-    ``nin`` f32 input rows of ``rank`` (factor rows gathered in the kernel,
-    or for ``blocked`` the pre-gathered rows, bf16 ones cast to f32 before
-    the launch); the stages' values; per stage its slots' ``row_in_tile``
-    (``fused``, ``blocked``) or per in-flight block its ``2·tile + 3``
-    segment descriptor words (``sorted``); and the ``(tile, rank)`` f32
-    tile accumulator. No index word is staged: a stage's indices live in
-    registers, and ``blocked`` has none. ``ref`` launches no kernel and
-    models as 0."""
+    of 4-byte words, every part rounded up to 16 bytes. ``fused`` and
+    ``blocked``: the ``cp.async`` ring of ``num_buffers`` stages of
+    :data:`STAGE_SLOTS` slots, each slot's ``nin`` f32 input rows of
+    ``rank`` (factor rows gathered in the kernel, or for ``blocked`` the
+    pre-gathered rows, bf16 ones cast to f32 before the launch), the stages'
+    values and per stage its slots' ``row_in_tile``; no index word is
+    staged (a stage's indices live in registers, and ``blocked`` has none).
+    ``sorted`` keeps its loads in registers: two staging rows of
+    :data:`STEP_FLOATS` f32 for a step's products and a ring of two blocks'
+    ``2·tile + 3`` segment descriptor words, whatever ``nin`` and
+    ``num_buffers``. Each ends in the ``(tile, rank)`` f32 tile
+    accumulator. ``ref`` launches no kernel and models as 0."""
     if variant == "ref":
         return 0
     if variant not in ("sorted", "fused", "blocked"):
         raise ValueError(f"unknown EC variant {variant!r}")
     if nin is None or num_buffers is None:
-        raise ValueError(f"ec_{variant}'s shared memory depends on nin and "
-                         f"num_buffers")
+        raise ValueError(f"ec_{variant}: variant_smem_bytes takes nin and "
+                         f"num_buffers for every kernel variant")
 
     def words16(n):
         return -(-n // 4) * 4
 
-    meta = (num_buffers * (2 * tile + 3) if variant == "sorted"
-            else num_buffers * STAGE_SLOTS)
-    warp_words = (words16(num_buffers * STAGE_SLOTS * nin * rank)
-                  + words16(num_buffers * STAGE_SLOTS) + words16(meta)
-                  + words16(tile * rank))
+    if variant == "sorted":
+        warp_words = (words16(tile * rank) + 2 * STEP_FLOATS
+                      + words16(2 * (2 * tile + 3)))
+    else:
+        warp_words = (words16(num_buffers * STAGE_SLOTS * nin * rank)
+                      + 2 * words16(num_buffers * STAGE_SLOTS)
+                      + words16(tile * rank))
     return ITEM_WARPS * warp_words * 4

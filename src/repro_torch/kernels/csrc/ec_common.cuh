@@ -4,7 +4,7 @@
 // contract a multiply and an add into an FMA: the products and sums must
 // round exactly as the plain f32 versions round them.
 //
-// Launch layout, the same for all three: one warp per work item
+// Work items, the same for all three: one warp per work item
 // (kernels/_build.py::tile_chunks), EC_ITEM_WARPS items per CUDA block. An
 // item is at most CHUNK_BLOCKS consecutive kernel blocks of one run (the
 // blocks of one output tile). A run of at most that many blocks is one item,
@@ -14,35 +14,38 @@
 // sets out[row] = ((0 + p_0) + p_1) + ... over the run's partials in item
 // order. That fixed two-level order is what the plain versions reproduce
 // (kernels/ref.py::ec_rows_chunked), so the result is deterministic and does
-// not depend on the card.
+// not depend on the card. Each item stops after its last slot whose value is
+// not 0 (ec_last_nonzero). ec_sorted walks its items with a kernel of its
+// own (ec_sorted.cu: lane groups over whole rows, the segment descriptors);
+// the one-hot variants share ec_item_kernel below.
 //
-// Inside an item (ec_item_kernel) the warp walks its slots in stages of
-// EC_STAGE_SLOTS, up to the stage that holds the item's last slot whose value
-// is not 0 and no further. Pad slots (value 0) lie at the end of a tile's run
-// (core/partition.py::block_device_rows), so only a run's last item holds
-// them: its last block's padded tail, and on a shard padded to the mesh's
-// longest, whole trailing blocks. The warp finds that slot from the values
-// themselves (ec_last_nonzero, read beside stage 0's indices) and issues no
-// copy past it. A skipped slot adds 0 * rows = +-0 to a row's sum, which
-// changes no finite sum (a -0 sum may end as -0 instead of +0), so the bits
-// are those of the plain versions, which sum every slot, wherever the factors
-// are finite. Not so where a pad slot's input row holds an inf or a NaN: the
-// plain versions carry its 0 * inf = NaN into the pads' row, the kernels no
-// longer do. Mid-run zero values are walked as any other slot.
+// Inside an item (ec_item_kernel: ec_fused, ec_blocked) the warp walks its
+// slots in stages of EC_STAGE_SLOTS, up to the stage that holds the item's
+// last slot whose value is not 0 and no further. Pad slots (value 0) lie at
+// the end of a tile's run (core/partition.py::block_device_rows), so only a
+// run's last item holds them: its last block's padded tail, and on a shard
+// padded to the mesh's longest, whole trailing blocks. The warp finds that
+// slot from the values themselves (ec_last_nonzero, read beside stage 0's
+// indices) and issues no copy past it. A skipped slot adds 0 * rows = +-0 to
+// a row's sum, which changes no finite sum (a -0 sum may end as -0 instead
+// of +0), so the bits are those of the plain versions, which sum every slot,
+// wherever the factors are finite. Not so where a pad slot's input row holds
+// an inf or a NaN: the plain versions carry its 0 * inf = NaN into the pads'
+// row, the kernels no longer do. Mid-run zero values are walked as any other
+// slot.
 //
 // A ring of `nbuf` stages in shared memory is filled with cp.async: each
 // slot's nin input rows (16 bytes a thread where R % 4 == 0), its value, and
-// the variant's per-stage metadata. Where the rows come from is fixed at
+// its row_in_tile (RowInTileMeta). Where the rows come from is fixed at
 // compile time: rows of the factor matrices named by input_indices
-// (ec_sorted, ec_fused; a stage's indices are loaded one step before its
-// rows are requested, so no row load waits on its index at use time), or
-// row `slot` of the (nnz, R) arrays gathered before the kernel
-// (ec_blocked; a stage is then one contiguous stretch of each array). Lanes
-// span the R columns; the warp sums each row in slot order in registers,
-// moving a row's running sum to the shared (tile, R) accumulator only when
-// the row changes. No tensor cores (a one-hot product in TF32 would lose f32
-// parity and is pure scatter overhead) and no TMA (it moves tiles, not
-// scattered rows).
+// (ec_fused; a stage's indices are loaded one step before its rows are
+// requested, so no row load waits on its index at use time), or row `slot`
+// of the (nnz, R) arrays gathered before the kernel (ec_blocked; a stage is
+// then one contiguous stretch of each array). Lanes span the R columns; the
+// warp sums each row in slot order in registers, moving a row's running sum
+// to the shared (tile, R) accumulator only when the row changes. No tensor
+// cores (a one-hot product in TF32 would lose f32 parity and is pure scatter
+// overhead) and no TMA (it moves tiles, not scattered rows).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -81,6 +84,10 @@ __device__ __forceinline__ void ec_cp_async16(void* smem, const void* gmem) {
 
 __device__ __forceinline__ void ec_cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ec_cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Wait until at most `pending` (nbuf - 1, in [1, 3]) groups are in flight.

@@ -21,27 +21,39 @@ slots it walks), so it skips the pad slots at a run's end, which add
 slot's input row (row 0 of each input factor) reaches the pads' output row
 through ``0·inf`` in the plain version only.
 
-What bounds it on the H100. Bytes: per slot it reads a value, ``nin``
-indices and ``nin`` factor rows of ``R`` f32, and does ``(nin + 1)·R``
-flops on them — far below the card's ~20 flops per byte. The least time is
-every input read once (values, indices, descriptors, the distinct factor
-rows) and the output written once, over 3.35 TB/s; the factor rows are read
-once per slot, from L2 where the factors fit there.
+What bounds it on the H100. Bytes, in principle: per slot it reads a
+value, ``nin`` indices and ``nin`` factor rows of ``R`` f32, and does
+``(nin + 1)·R`` flops on them — far below the card's ~20 flops per byte.
+The least time is every input read once (values, indices, descriptors, the
+distinct factor rows) and the output written once, over 3.35 TB/s; the
+factor rows are read once per slot, from L1 or L2 where they stay there.
+Its first Hopper design (one lane a column, rows staged through a shared
+``cp.async`` ring) spent ~100 warp instructions a slot and was bound by
+instruction issue instead (PERF.md §6).
 
 What the design does about it. The TPU ran the grid in order on one core
 and kept the output tile in VMEM across the blocks of a tile. Here runs are
 cut into work items of at most ``CHUNK_BLOCKS`` blocks (``_build.tile_chunks``),
 one warp each, so a hot tile's run is spread over the SMs; a split run's
 items write ``(tile, R)`` partials that ``ec_combine`` adds in item order.
-The warp fills a ``cp.async`` ring of ``num_buffers`` stages with its
-slots' factor rows, values and block descriptors, its indices loaded one
-step ahead, and sums each segment in registers, one lane per column. It
-reads its last block's values beside its first indices, finds its last
-nonzero value with a warp reduction, and walks no stage after it: under a
-Zipf skew most tiles hold a handful of nonzeros in a block of ``block_p``
-slots.
-``num_buffers`` changes no bit. What it gives up: strict slot order on runs
-longer than ``CHUNK_BLOCKS`` blocks, for the fixed two-level order.
+A warp walks its item's slots in steps of ``_build.step_width(R)`` slots:
+it is cut into lane groups that each take one slot's whole factor rows as
+16-byte read-only loads, which L1 caches (4 slots a step at R 32, one at
+R 128; one column a lane where ``R % 4 != 0``), ``num_buffers - 1`` steps
+ahead in registers, the slots' values and indices read 32 at a time a
+chunk ahead and handed to the groups by shuffles. The step's products
+pass through a staging row of shared memory to lanes that each hold
+columns of the running sum, which add them in slot order; the block's
+segment descriptors, copied a block ahead, say where the row changes, and
+only there does the sum move to the warp's ``(tile, R)`` shared
+accumulator. R 32 with 16-byte rows has a kernel compiled for that rank.
+The warp reads its last block's values beside its first two chunks, finds
+its last nonzero value with a warp reduction, and walks no slot after it
+(``_build.walked_slots``; ``_build.step_slots`` counts the steps' lane
+groups): under a Zipf skew most tiles hold a handful of nonzeros in a
+block of ``block_p`` slots. ``num_buffers`` changes no bit.
+What it gives up: strict slot order on runs longer than ``CHUNK_BLOCKS``
+blocks, for the fixed two-level order.
 """
 from __future__ import annotations
 

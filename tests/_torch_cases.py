@@ -181,6 +181,48 @@ def long_trailing_pad_case():
     return part, _factors(t.shape, 11), 1, dev
 
 
+def hot_row_whole_blocks_case():
+    """One row alone in its tile, 640 nonzeros at block_p 16: a run of 40
+    blocks that its one segment fills whole, split into items of 16, 16
+    and 8 blocks; rank 64, two rows' worth of lane groups a step."""
+    block_p, nnz = 16, 640
+    rng = np.random.default_rng(18)
+    ind = np.zeros((nnz, 3), np.int64)
+    ind[:, 1] = 5
+    ind[:, 0] = rng.integers(0, 9, nnz)
+    ind[:, 2] = rng.integers(0, 13, nnz)
+    t = SparseTensor(ind.astype(np.int32),
+                     rng.normal(size=nnz).astype(np.float32), (9, 8, 13))
+    part, _, _ = partition_mode(t, 1, 1, tile=8, block_p=block_p,
+                                layout="sorted")
+    assert (part.values[0] != 0).all() and part.nblocks == 40
+    assert len(np.unique(part.local_rows[0])) == 1
+    return part, _factors(t.shape, 19, rank=64), 1, 0
+
+
+def segment_mid_step_case():
+    """One tile of 4 rows holding 14, 18, 30 and 258 nonzeros at block_p
+    16: at rank 32 (4 slots a step) a step holds the first row's last two
+    slots and the next row's first two, and that row goes on in the next
+    block; the same again at slot 62; the run of 20 blocks is split
+    inside the last row's segment."""
+    block_p, counts = 16, [14, 18, 30, 258]
+    rng = np.random.default_rng(20)
+    nnz = sum(counts)
+    ind = np.zeros((nnz, 3), np.int64)
+    ind[:, 1] = np.repeat(np.arange(4), counts)
+    ind[:, 0] = rng.integers(0, 9, nnz)
+    ind[:, 2] = rng.integers(0, 17, nnz)
+    t = SparseTensor(ind.astype(np.int32),
+                     rng.normal(size=nnz).astype(np.float32), (9, 4, 17))
+    part, _, _ = partition_mode(t, 1, 1, tile=4, block_p=block_p,
+                                layout="sorted")
+    rows = part.local_rows[0]
+    assert (part.values[0] != 0).all() and part.nblocks == 20
+    assert rows[13] != rows[14] == rows[16] and rows[61] != rows[62]
+    return part, _factors(t.shape, 21, rank=32), 1, 0
+
+
 LONG_RUN = {
     "hot_row_3mode": lambda: hot_row_case(3, 8, seed=1),
     "hot_row_4mode": lambda: hot_row_case(4, 32, seed=2),
@@ -189,6 +231,8 @@ LONG_RUN = {
                                                    layout="blocked"),
     "boundary_on_block_edge": long_block_edge_case,
     "all_padding_last_item": long_trailing_pad_case,
+    "hot_row_fills_whole_blocks": hot_row_whole_blocks_case,
+    "segment_ends_mid_step": segment_mid_step_case,
 }
 
 

@@ -16,11 +16,11 @@ on shards with such runs:
 * the same bits for every ``num_buffers``, and for ``sorted``, ``fused``
   and ``blocked`` alike.
 
-Also the slots the item kernel walks (``_build.walked_slots``): up to the
-stage of each item's last nonzero value, so on every shard Σ over tiles of
-``ceil(count / STAGE_SLOTS) · STAGE_SLOTS``; the slots and partials of the
-split path (``_build.split_slots``), against hand counts; and the per-mode
-gauges ``api.compile`` sets from them.
+Also the slots ``ec_sorted``'s kernel walks (``_build.walked_slots``): up to
+each item's last nonzero value, so on a shard whose every entry is nonzero
+its tiles' entries, no more; the slots and partials of the split path
+(``_build.split_slots``), against hand counts; and the per-mode gauges
+``api.compile`` sets from them.
 """
 import os
 
@@ -280,13 +280,10 @@ def test_chunked_equals_slot_order_on_short_runs():
 
 # -- the slots the item kernel walks -----------------------------------------
 
-S = _build.STAGE_SLOTS
-
-
-def _stage_slots(tile_counts):
-    """Σ over tiles of ceil(count / STAGE_SLOTS) · STAGE_SLOTS."""
-    tc = np.asarray(tile_counts, np.int64)
-    return int((-(-tc // S) * S).sum())
+def _entries(tile_counts):
+    """Σ over tiles of their entries: what the kernel walks where every
+    entry is nonzero."""
+    return int(np.asarray(tile_counts, np.int64).sum())
 
 
 def _chunks(b2t):
@@ -317,15 +314,15 @@ def _tile_counts(part, dev):
 def test_walked_slots_on_partitioned_plans(layout, nmodes, num_devices,
                                            replication, block_p, seed):
     """Every shard of a zipf plan, a mesh's trailing pad blocks and split
-    runs among them: the stages that hold a tile's entries, no more."""
+    runs among them: a tile's entries, no more."""
     part, _ = partitioned_case(nmodes, 8, seed=seed, nnz=800,
                                num_devices=num_devices,
                                replication=replication, block_p=block_p,
                                layout=layout)
     for dev in range(part.num_devices):
-        want = _stage_slots(_tile_counts(part, dev))
+        want = _entries(_tile_counts(part, dev))
         got = _walked(part.values[dev], part.block_to_tile[dev], block_p)
-        assert got == want and got % S == 0
+        assert got == want == part.nnz_true[dev]
         assert got <= part.values[dev].size
 
 
@@ -364,7 +361,7 @@ def test_walked_slots_tile_counts(layout, case, counts, pad_blocks):
     v, b2t = _shard(counts, layout=layout, pad_blocks=pad_blocks)
     if "split" in case:
         assert longest_run(b2t) > C
-    assert _walked(v, b2t, 16) == _stage_slots(counts)
+    assert _walked(v, b2t, 16) == _entries(counts)
 
 
 # (counts, pad_blocks, tile, split slots, partials) at block_p 16, so a
@@ -396,7 +393,7 @@ def test_split_slots_tile_counts(layout, case):
     v, b2t = _shard(counts, layout=layout, tile=tile, pad_blocks=pad_blocks)
     assert _build.split_slots(_chunks(b2t), 16) == (slots, partials)
     assert (slots > 0) == (longest_run(b2t) > C)
-    assert _walked(v, b2t, 16) == _stage_slots(counts)
+    assert _walked(v, b2t, 16) == _entries(counts)
 
 
 def test_split_slots_of_no_blocks():
@@ -406,25 +403,26 @@ def test_split_slots_of_no_blocks():
 @pytest.mark.parametrize("layout", ["sorted", "blocked"])
 def test_walked_slots_count_a_zero_value_mid_run(layout):
     """A real entry of value 0.0 before its run's last nonzero is walked,
-    a whole stage of them too; at the run's end it is skipped like a
-    pad."""
+    eight in a row too; at the run's end it is skipped like a pad."""
     counts = [12, 41, 6]
     v, b2t = _shard(counts, layout=layout)
     v[16 + 3] = 0.0                # tile 1, first block
-    v[16 + 16 + 8:16 + 16 + 16] = 0.0  # tile 1, a whole stage mid-run
-    assert _walked(v, b2t, 16) == _stage_slots(counts)
-    v[16 + 40] = 0.0               # tile 1's last entry, alone in its stage
-    assert _walked(v, b2t, 16) == _stage_slots(counts) - S
+    v[16 + 16 + 8:16 + 16 + 16] = 0.0  # tile 1, eight in a row mid-run
+    assert _walked(v, b2t, 16) == _entries(counts)
+    v[16 + 40] = 0.0               # tile 1's last entry
+    assert _walked(v, b2t, 16) == _entries(counts) - 1
+    v[16 + 39] = 0.0               # and the one before it
+    assert _walked(v, b2t, 16) == _entries(counts) - 2
 
 
 @pytest.mark.parametrize("case", sorted(
     set(PAD_STAGES) - {"mid_run_zero_values"}) + sorted(LONG_RUN))
 def test_walked_slots_on_the_card_tests_shards(case):
     """The shards the card tests hold the kernels on, whose every entry is
-    nonzero: the stages of each tile's entries."""
+    nonzero: each tile's entries."""
     part, _, _, dev = {**PAD_STAGES, **LONG_RUN}[case]()
     got = _walked(part.values[dev], part.block_to_tile[dev], part.block_p)
-    assert got == _stage_slots(_tile_counts(part, dev))
+    assert got == _entries(_tile_counts(part, dev))
 
 
 def test_compile_sets_the_walked_slot_share_of_every_mode():

@@ -77,9 +77,12 @@ def _assert_kernel_equals_plain(part, factors, variant, cuda, **kw):
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
+# ranks: ec_sorted's lane groups of 8 lanes (4 slots a step at R 32), 16
+# (2 slots, R 64) and 32 (1 slot, R 128), one column a lane (R 30), and 16
+# slots a step (R 8); nin 1 to 4
 @pytest.mark.parametrize("variant", ["sorted", "fused", "blocked"])
-@pytest.mark.parametrize("nmodes", [3, 4, 5])
-@pytest.mark.parametrize("rank", [8, 32])
+@pytest.mark.parametrize("nmodes", [2, 3, 4, 5])
+@pytest.mark.parametrize("rank", [8, 30, 32, 64, 128])
 def test_kernel_matches_plain(cuda, variant, nmodes, rank):
     layout = "sorted" if variant == "sorted" else "blocked"
     part, factors = partitioned_case(nmodes, rank, seed=nmodes * 10 + rank,
@@ -148,8 +151,9 @@ def test_smem_model_is_what_the_kernel_lays_out(cuda, variant, nmodes, rank,
 
 @pytest.mark.parametrize("variant", ["sorted", "fused", "blocked"])
 def test_oversized_item_kernel_raises_before_launch(cuda, variant):
-    # blocked's ring is 2 stages deep, so it needs a larger tile to overflow
-    tile = 64 if variant == "blocked" else 32
+    # blocked's ring is 2 stages deep, so it needs a larger tile to
+    # overflow; sorted stages no rows, only its tile grows
+    tile = {"sorted": 128, "fused": 32, "blocked": 64}[variant]
     part, factors = partitioned_case(5, 128, seed=3, tile=tile)
     before = dict(_build.LAUNCHES)
     with pytest.raises(ValueError, match="shared memory"):

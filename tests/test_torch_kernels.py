@@ -309,12 +309,17 @@ def test_kernel_kwargs_and_autotune(monkeypatch):
 def test_smem_model_and_limit():
     kw = dict(tile=8, rank=32)
     assert ops.variant_smem_bytes("ref", **kw) == 0
-    # every kernel: 4 warps, each a ring of 2 stages of 8 slots of 2 rows,
-    # the stages' values, the metadata (2 blocks of 2*8+3 descriptor words,
-    # or 2 stages of 8 rows in tile, 16-byte rounded) and the tile
+    # every kernel: 4 warps. sorted: the tile, two staging rows of 128 f32
+    # and a ring of 2 blocks of 2*8+3 descriptor words (16-byte rounded),
+    # whatever nin and the depth; fused: a ring of 2 stages of 8 slots of 2
+    # rows, the stages' values, 2 stages of 8 rows in tile, and the tile
     ring = dict(nin=2, num_buffers=2)
     assert ops.variant_smem_bytes("sorted", **kw, **ring) == \
-        4 * 4 * (2 * 8 * 2 * 32 + 16 + 40 + 8 * 32)
+        4 * 4 * (8 * 32 + 2 * 128 + 40)
+    for nin, num_buffers in ((1, 3), (4, 4)):
+        assert ops.variant_smem_bytes("sorted", **kw, nin=nin,
+                                      num_buffers=num_buffers) == \
+            ops.variant_smem_bytes("sorted", **kw, **ring)
     assert ops.variant_smem_bytes("fused", **kw, **ring) == \
         4 * 4 * (2 * 8 * 2 * 32 + 16 + 16 + 8 * 32)
     # blocked lays out fused's region: its ring holds the pre-gathered rows
@@ -324,19 +329,20 @@ def test_smem_model_and_limit():
     assert ops.variant_smem_bytes("blocked", tile=8, rank=32, nin=3,
                                   num_buffers=RING_DEPTH) == \
         4 * 4 * (RING_DEPTH * 8 * (3 * 32 + 2) + 8 * 32)
-    # every case of the tested range fits
-    for variant in ("sorted", "fused", "blocked"):
+    # every case of the tested range fits; sorted's tile alone grows with
+    # the tile
+    for variant, tile in (("sorted", 128), ("fused", 32), ("blocked", 32)):
         assert ops.variant_smem_bytes(variant, tile=8, rank=64, nin=4,
                                       num_buffers=4) < ops.SMEM_LIMIT
-        assert ops.variant_smem_bytes(variant, tile=32, rank=128, nin=4,
+        assert ops.variant_smem_bytes(variant, tile=tile, rank=128, nin=4,
                                       num_buffers=4) > ops.SMEM_LIMIT
         with pytest.raises(ValueError, match="nin and num_buffers"):
             ops.variant_smem_bytes(variant, **kw)
     b2t = torch.zeros(4, dtype=torch.int32)
     items = _build.pack_items(b2t)
     with pytest.raises(ValueError, match="shared memory"):
-        _build.item_buffers("sorted", b2t, num_rows=32, tile=32, rank=128,
-                            nin=4, num_buffers=4, items=items)
+        _build.item_buffers("sorted", b2t, num_rows=128, tile=128,
+                            rank=128, nin=4, num_buffers=4, items=items)
     with pytest.raises(ValueError, match="shared memory"):
         _build.item_buffers("blocked", b2t, num_rows=64, tile=64, rank=128,
                             nin=4, num_buffers=RING_DEPTH, items=items)

@@ -13,7 +13,10 @@ probe, the tuner and the audit count one ``ec.items.placed`` a launch; a
 launch without items is refused. And with no mask after the EC, every
 output row outside the tiles a shard's blocks visit is +0.0, a NaN in
 each input factor's row 0 (the pads' row) notwithstanding, on every shard
-producer and every variant.
+producer and every variant. Also what ``ec_sorted``'s kernel makes of the
+placed items: the lane-group positions of the steps it walks each item in
+(``_build.step_slots``), against a count item by item, and the gauge
+``ec.step_fill_share.mode<d>`` ``api.compile`` sets from them.
 """
 import importlib.util
 import json
@@ -74,6 +77,53 @@ def test_resident_items_are_tile_chunks(case):
         _assert_placed_items(dev)
 
 
+# rank -> slots a step of ec_sorted's kernel: 4 columns a lane where the
+# rank is a multiple of 4 (a group of rank / 4 lanes), else one (a group of
+# min(rank, 32) lanes); a warp holds 32 // group groups
+STEP_WIDTH = {4: 32, 6: 5, 8: 16, 30: 1, 32: 4, 40: 3, 64: 2, 96: 1,
+              100: 1, 128: 1}
+
+
+def _item_walks(values, items, nblocks, block_p):
+    """Each work item's slots up to its last nonzero value, item by item
+    in numpy."""
+    starts = _build.item_views(items, nblocks).item_starts.numpy()
+    walks = []
+    for b0, b1 in zip(starts[:-1], starts[1:]):
+        if b0 >= nblocks:
+            break
+        nz = np.flatnonzero(values[b0 * block_p:b1 * block_p])
+        walks.append(int(nz[-1]) + 1 if nz.size else 0)
+    return walks
+
+
+def test_step_width():
+    assert {r: _build.step_width(r) for r in STEP_WIDTH} == STEP_WIDTH
+    for rank in (0, 129, 256):
+        with pytest.raises(ValueError, match="R in"):
+            _build.step_width(rank)
+
+
+@pytest.mark.parametrize("rank", [8, 30, 32, 64, 128])
+@pytest.mark.parametrize("case", sorted(LONG_RUN) + sorted(PAD_STAGES))
+def test_step_slots_count_each_items_steps(case, rank):
+    """Split runs, short tiles, mid-run zeros, trailing pad blocks: each
+    item walks its slots up to its last nonzero value in steps of
+    ``step_width(rank)``, its last step as wide as the others."""
+    part, *_ = {**LONG_RUN, **PAD_STAGES}[case]()
+    g = STEP_WIDTH[rank]
+    for dev in dm.shard_plan_mode(part, _mesh(part)):
+        nb = dev.block_to_tile.numel()
+        walks = _item_walks(dev.values.numpy(), dev.items, nb, part.block_p)
+        chunks = _build.item_views(dev.items, nb)
+        steps = _build.step_slots(dev.values, chunks, part.block_p, rank)
+        assert steps == sum(-(-n // g) * g for n in walks)
+        assert _build.walked_slots(dev.values, chunks,
+                                   part.block_p) == sum(walks)
+        assert steps % g == 0 and sum(walks) <= steps < sum(walks) + g * len(
+            walks)
+
+
 def _config_tensor(name, seed=2**31 + 5):
     """Configuration ``name`` at its ``tests`` cut, drawn by the
     benchmark's own generator, and its solver config."""
@@ -120,6 +170,33 @@ def _store_plan(tmp_path):
     sps = [split_mode_super_shards(p, budget) for p in plan.modes]
     assert max(sp.num_shards for sp in sps) >= 2
     return plan, sps, dm.cp_mesh(2, 2, devices=["cpu"] * 2)
+
+
+@pytest.mark.parametrize("rank", [8, 32])
+@pytest.mark.parametrize("name", CONFIGS)
+def test_compile_sets_the_step_fill_share_of_every_mode(name, rank):
+    """``api.compile`` sets ``ec.step_fill_share.mode<d>`` for every mode:
+    the walked slots of its shards over their steps' lane groups at the
+    config's rank, on the configurations' ``tests`` cuts."""
+    t, conf = _config_tensor(name)
+    cfg = api.preset(conf["preset"], {**conf["overrides"], "rank": rank,
+                                      "runtime.num_devices": 2})
+    plan = api.plan(t, cfg, device="cpu")
+    reg = obs.get_registry()
+    names = [f"ec.step_fill_share.mode{d}" for d in range(t.nmodes)]
+    for n in names:
+        reg.set_gauge(n, None)
+    with api.compile(plan, cfg, device="cpu") as solver:
+        for n, mode in zip(names, solver.dev_arrays):
+            walked = steps = 0
+            for dev in mode:
+                chunks = _build.item_views(dev.items,
+                                           dev.block_to_tile.numel())
+                bp = plan.modes[names.index(n)].block_p
+                walked += _build.walked_slots(dev.values, chunks, bp)
+                steps += _build.step_slots(dev.values, chunks, bp, rank)
+            assert reg.gauge(n) == walked / steps
+            assert 0 < reg.gauge(n) <= 1
 
 
 def test_streamed_windows_carry_their_own_items(tmp_path):
