@@ -165,6 +165,19 @@ def _gauge_slots(mode: int, block_p: int, rank: int, shards) -> None:
     reg.set_gauge(f"ec.partials.mode{mode}", partials)
 
 
+def _gauge_partition(part) -> None:
+    """Set the global registry's gauges of the mode's partition over the
+    devices: ``partition.nnz.mode<d>.dev<k>``, the nonzeros that device k
+    holds (``nnz_true``), and ``partition.padded_rows.mode<d>``, the rows
+    of the mode's padded factor that every replica holds (``n_groups ×
+    rows_max``)."""
+    reg = obs.get_registry()
+    for k, n in enumerate(part.nnz_true):
+        reg.set_gauge(f"partition.nnz.mode{part.mode}.dev{k}", int(n))
+    reg.set_gauge(f"partition.padded_rows.mode{part.mode}",
+                  int(part.n_groups * part.rows_max))
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` means the card. A CUDA device without a card raises: the
     port never falls back to the CPU unless asked."""
@@ -252,6 +265,8 @@ class CPSolver:
             for d in range(plan.nmodes):  # placed now, as compile promises
                 _gauge_slots(d, plan.modes[d].block_p, config.rank,
                              self.streamer.get(d))
+        for part in plan.modes:
+            _gauge_partition(part)
         self.rebalancer = None
         if config.schedule.telemetry_enabled:
             sched = config.schedule

@@ -47,7 +47,9 @@ Every device's own block also takes the wire round trip, so every replica
 ends with the same bits. One device (``M == 1`` or ``r == 1``) is the
 identity, with no cast. Each copy between two logical devices adds its
 bytes to the sender's count (``repro_torch.comm.volume.sent_bytes``), the
-counterpart of the bytes the reference measures in its compiled HLO.
+counterpart of the bytes the reference measures in its compiled HLO, and
+to the process registry's counter ``comm.sent_bytes.<kind>.dev<k>``
+(``repro_torch.obs.get_registry()``), which the registry's readers see.
 
 Selection precedence mirrors ``kernels/ops.py``: explicit argument >
 ``AMPED_EXCHANGE_VARIANT`` / ``AMPED_EXCHANGE_MERGE`` environment variable
@@ -62,6 +64,7 @@ from typing import Sequence
 
 import torch
 
+from repro_torch import obs
 from repro_torch.comm import volume
 
 __all__ = [
@@ -130,7 +133,9 @@ def _send_into(dst: torch.Tensor, src: torch.Tensor, src_id: int,
     receiving device: the one place where a payload crosses between
     logical devices, and where its bytes are counted."""
     dst.copy_(src, non_blocking=True)
-    volume.count_sent(kind, src_id, src.numel() * src.element_size())
+    nbytes = src.numel() * src.element_size()
+    volume.count_sent(kind, src_id, nbytes)
+    obs.get_registry().inc(f"comm.sent_bytes.{kind}.dev{src_id}", nbytes)
     return dst
 
 

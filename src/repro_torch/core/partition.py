@@ -297,30 +297,28 @@ def block_device_rows(lrow: np.ndarray, vals: np.ndarray, inds: np.ndarray,
     tc = np.bincount(tiles, minlength=n_tiles) if k else np.zeros(n_tiles, np.int64)
     tc_pad = -(-tc // block_p) * block_p
     tot = int(tc_pad.sum())
-    rows_b = np.zeros(tot, np.int64)
-    vals_b = np.zeros(tot, np.float32)
-    inds_b = np.zeros((tot, nmodes), np.int64)
-    b2t_b = np.zeros(tot // block_p, np.int64) if tot else np.zeros(0, np.int64)
-    off = 0
-    src = 0
     tile_order = np.argsort(tiles, kind="stable")
-    for ti in range(n_tiles):
-        c, cp = int(tc[ti]), int(tc_pad[ti])
-        if cp == 0:
-            continue
-        pick = tile_order[src:src + c]
-        src += c
-        rows_b[off:off + c] = lrow[pick]
-        if layout == "sorted":
-            # cp > 0 implies c > 0 (tc_pad is 0 exactly when tc is), so the
-            # last real row exists and the block stays row-monotone.
-            rows_b[off + c:off + cp] = rows_b[off + c - 1]
-        else:
-            rows_b[off + c:off + cp] = ti * tile  # no-op pad rows in tile
-        vals_b[off:off + c] = vals[pick]
-        inds_b[off:off + c] = inds[pick]
-        b2t_b[off // block_p:(off + cp) // block_p] = ti
-        off += cp
+    sorted_tiles = tiles[tile_order]
+    # each tile's run starts after the padded runs before it; an entry lands
+    # at its run's start plus its rank among the tile's entries (stable)
+    run_start = np.cumsum(tc_pad) - tc_pad
+    dest = run_start[sorted_tiles] + np.arange(k) \
+        - (np.cumsum(tc) - tc)[sorted_tiles]
+    # pad slots point at the tile's last real row (a padded run holds one:
+    # tc_pad is 0 exactly when tc is) or at the tile's first row
+    if layout == "sorted":
+        pad_row = np.zeros(n_tiles, np.int64)
+        used = tc > 0
+        pad_row[used] = lrow[tile_order[np.cumsum(tc)[used] - 1]]
+    else:
+        pad_row = np.arange(n_tiles, dtype=np.int64) * tile
+    rows_b = np.repeat(pad_row, tc_pad)
+    rows_b[dest] = lrow[tile_order]
+    vals_b = np.zeros(tot, np.float32)
+    vals_b[dest] = vals[tile_order]
+    inds_b = np.zeros((tot, nmodes), np.int64)
+    inds_b[dest] = inds[tile_order]
+    b2t_b = np.repeat(np.arange(n_tiles, dtype=np.int64), tc_pad // block_p)
     return rows_b, vals_b, inds_b, b2t_b
 
 
@@ -425,6 +423,19 @@ def partition_mode(
     nz_group, nz_padded_row = nz_group[order], nz_padded_row[order]
     ind_sorted, val_sorted = t.indices[order], t.values[order]
 
+    # translate input-mode indices into padded layouts, on the nonzeros
+    # before they are blocked (pad slots stay 0); an entry whose value is 0
+    # gets index 0 too
+    if all_g2p is not None:
+        ind_sorted = ind_sorted.astype(np.int64)
+        live = val_sorted != 0
+        for w in range(t.nmodes):
+            t_g2p = g2p if w == mode else all_g2p[w]
+            if t_g2p is not None and t_g2p.size:
+                ind_sorted[:, w] = np.where(
+                    live, t_g2p[np.minimum(ind_sorted[:, w], t_g2p.size - 1)],
+                    0)
+
     group_counts = np.bincount(nz_group, minlength=n_groups)
     group_start = np.zeros(n_groups, np.int64)
     group_start[1:] = np.cumsum(group_counts)[:-1]
@@ -481,22 +492,6 @@ def partition_mode(
             pad_tile = int(b2t_arr[dev, -1])
             rows_arr[dev, k:] = pad_tile * tile
         visited[dev, b2t_arr[dev]] = 1.0
-
-    # translate input-mode indices into padded layouts
-    if all_g2p is not None:
-        for w in range(nmodes):
-            if w == mode:
-                inds_arr[:, :, w] = np.where(
-                    vals_arr != 0, g2p[np.minimum(inds_arr[:, :, w], max(hist.size - 1, 0))], 0
-                ) if hist.size else 0
-            else:
-                t_g2p = all_g2p[w]
-                if t_g2p is not None and t_g2p.size:
-                    inds_arr[:, :, w] = np.where(
-                        vals_arr != 0,
-                        t_g2p[np.minimum(inds_arr[:, :, w], t_g2p.size - 1)],
-                        0,
-                    )
 
     part = ModePartition(
         mode=mode,
@@ -577,15 +572,16 @@ def build_plan(
         replication = max(
             auto_replication(t.mode_histogram(d), num_devices)
             for d in range(n))
-    # pass 1: row layouts per mode (needed to translate input indices)
+    # pass 1: row layouts per mode, from each histogram alone (needed to
+    # translate input indices)
     g2ps: list[np.ndarray] = []
     metas = []
     for d in range(n):
-        _, g2p, p2g = partition_mode(
-            t, d, num_devices, strategy=strategy, replication=replication,
-            tile=tile, block_p=block_p, layout=layout, all_g2p=None)
-        g2ps.append(g2p)
-        metas.append(p2g)
+        lay = mode_layout(t.mode_histogram(d), d, num_devices,
+                          strategy=strategy, replication=replication,
+                          tile=tile, block_p=block_p, layout=layout)
+        g2ps.append(lay.global_to_padded)
+        metas.append(lay.padded_to_global)
     # pass 2: build device arrays with translated indices
     parts = []
     for d in range(n):
