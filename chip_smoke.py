@@ -6,7 +6,7 @@
 Phases, each of which exits non-zero on failure:
 
 1. Device: requires CUDA; prints the card's name and power limit.
-2. Build: compiles the EC kernels from ``src/repro_torch/kernels/csrc``
+2. Build: compiles the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, in parallel) and prints the ``-Xptxas -v``
    register / shared-memory / spill lines.
 3. Data: generates the ``amazon`` profile (seed 0) and plans it with the
@@ -45,6 +45,17 @@ Phases, each of which exits non-zero on failure:
    after; fits must be finite and non-decreasing, ``blocked``'s must equal
    ``fused``'s, and both must agree with ``sorted``'s to 1e-4 (``sorted``
    regroups the hot rows' sums otherwise than the one-hot variants).
+   ``pinv_psd``, the solve's pseudo-inverse, must have launched once per
+   mode and sweep in each run. Then the kernel alone, on the V of every
+   mode's solve after 2 sorted sweeps (R 32, nmodes - 1 grams of the
+   solver's state), and on the same grams cut to R 128 by repeating
+   columns (the packed kernel above R 64): its V⁺ is held against a float64
+   pseudo-inverse with the same cut, no farther than the f32 ``eigh``
+   plain version's error or 1e-6 of max|V⁺| (a wrong rotation or cut is
+   off by O(1)), and bitwise equal on a second call; it is timed with CUDA
+   events beside the plain version and ``torch.linalg.pinv(V,
+   hermitian=True)``, with its Jacobi sweeps and a bound from its bytes
+   and the fp64 work of those sweeps.
 6. Multi-device path: the same tensor planned for 4 devices with the
    ``sorted`` preset from its store, every shard read into host arrays
    (``StoreModePartition.materialize``: the in-memory plan, bitwise; prints
@@ -57,8 +68,8 @@ Phases, each of which exits non-zero on failure:
    default exchange (``ring``, fp32), then 2 each with ``allgather``,
    ``overlap`` and ``overlap`` on a bf16 wire, and 2 each of ``fused``
    and ``blocked``. Counts are set to 0 just before each run and read
-   just after: the kernel must have launched once per mode, device and
-   sweep; fits finite, non-decreasing and within 1e-4 of the one-device
+   just after: the kernel, and ``pinv_psd``, must have launched once per
+   mode, device and sweep; fits finite, non-decreasing and within 1e-4 of the one-device
    run (bf16: within 0.08 of fp32); every replica bitwise equal; the fp32
    gathers' factors bitwise equal to ``ring``'s; ``blocked``'s fits equal
    to ``fused``'s; the bytes that each logical device sent equal to
@@ -179,9 +190,9 @@ Phases, each of which exits non-zero on failure:
    ``check_plan`` (deep) on the main plan and ``api.plan(store, cfg,
    analyze="strict")``: no AP error; AH-H001 clean for ``sorted`` and
    ``fused`` and finding ``blocked``'s pre-gather; ``CPSolver.audit()`` of
-   the main path's solver leaves its state bitwise unchanged, and every
-   AH-H002 finding is printed with its source line (``_pinv_psd``'s eigh is
-   expected); AH-H005 clean on phase 6's r = 2 plan on 4 logical devices
+   the main path's solver leaves its state bitwise unchanged and finds
+   nothing (the solve's pseudo-inverse is a kernel on the card's stream,
+   so no mode update synchronises); AH-H005 clean on phase 6's r = 2 plan on 4 logical devices
    with the ``overlap`` exchange on a bf16 wire; AH-H006 clean after (b);
    the concurrency lint clean. Prints p50/p99 per operation, rows/s,
    ``topk`` ms and the bucket counts.
@@ -256,6 +267,8 @@ Phases, each of which exits non-zero on failure:
    terms; prints every cell's terms and seconds.
 16. Summary: one JSON line ``{"kernels": [...]}`` (``ms``, ``plain_ms`` and
    ``bound_ms`` summed over the three modes, i.e. one sweep's launches;
+   ``pinv_psd`` last, from phase 5, with ``library_ms`` and launches counted
+   on the main and multi-device paths only;
    ``launches`` from the main-path run, ``multi_device_launches`` from the
    multi-device path's, ``rebalance_launches`` from the rebalance phase's
    ``"measure"`` and ``"on"`` runs, of which ``rebalance_probe_launches``
@@ -285,13 +298,16 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12     # H100 SXM f32 outside the tensor cores
+F64_FLOPS_PER_S = 33.5e12   # H100 SXM fp64 outside the tensor cores
 NVLINK_BYTES_PER_S = 450e9  # H100 SXM NVLink, each way per card
 RTOL = 1e-5
 REF_RTOL = 1e-4  # kernel vs the slot-order ref: long runs are regrouped
 SWEEPS = 5
 AB_SWEEPS = 2
 FIT_TOL = 1e-4
-KERNELS = ("ec_sorted", "ec_fused", "ec_blocked")
+KERNELS = ("ec_sorted", "ec_fused", "ec_blocked")  # the EC's kernels
+PINV_RCOND = 1e-8  # the solve's cut (kernels/pinv.RCOND)
+PINV_FLOOR = 1e-6  # pinv_psd's error floor, relative to max|V+|
 REPLACES = {
     "ec_sorted": "src/repro/kernels/mttkrp_sorted.py:133",
     "ec_fused": "src/repro/kernels/mttkrp_fused.py:128",
@@ -596,6 +612,110 @@ def run_solver(api, plan, cfg, sweeps: int, label: str):
     return fits, counts, wall
 
 
+def pinv64(v, rcond: float = PINV_RCOND) -> np.ndarray:
+    """The float64 pseudo-inverse of ``v`` (the f32 V) with the solve's
+    cut: the yardstick of ``pinv_psd`` and its plain version."""
+    w, u = np.linalg.eigh(v.double().cpu().numpy())
+    keep = w > rcond * np.abs(w).max()
+    w_inv = np.where(keep, 1.0 / np.where(keep, w, 1.0), 0.0)
+    return (u * w_inv) @ u.T
+
+
+def pinv_one(grams: list, label: str) -> dict:
+    """``pinv_psd`` on one solve's grams (card tensors) against a float64
+    pseudo-inverse, its plain version and the library's; times, sweeps
+    and the bound (bytes in and out, and 4 R³ fp64 operations a Jacobi
+    sweep plus 2 R³ for ``U diag(w⁺) Uᵀ``)."""
+    import functools
+
+    import torch
+    from repro_torch.kernels import pinv
+    rank, ng = grams[0].shape[0], len(grams)
+    v = functools.reduce(lambda a, b: a * b, grams)
+    want = pinv64(v)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    sweeps = torch.zeros(1, dtype=torch.int32, device=v.device)
+    got = pinv.pinv_psd(grams, sweeps=sweeps)
+    again = pinv.pinv_psd(grams)
+    plain = pinv.pinv_psd_plain(v)
+    torch.cuda.synchronize()
+
+    def err(x):
+        return float(np.abs(x.double().cpu().numpy() - want).max()) / scale
+
+    e_kernel, e_plain = err(got), err(plain)
+    nsweeps = int(sweeps)
+    if not torch.isfinite(got).all():
+        fail(f"pinv_psd {label}: non-finite output")
+    if e_kernel > max(e_plain, PINV_FLOOR):
+        fail(f"pinv_psd {label}: error {e_kernel:.3e} against float64, "
+             f"above the f32 eigh's {e_plain:.3e} and the floor "
+             f"{PINV_FLOOR}")
+    if not torch.equal(got, again) or not torch.equal(got, got.T):
+        fail(f"pinv_psd {label}: a second call's bits differ, or V+ is not "
+             f"symmetric")
+    if not 0 <= nsweeps < pinv.MAX_SWEEPS:
+        fail(f"pinv_psd {label}: {nsweeps} Jacobi sweeps, the limit is "
+             f"{pinv.MAX_SWEEPS}")
+    nbytes = (ng + 1) * rank * rank * 4
+    flops = (4 * nsweeps + 2) * rank ** 3
+    b_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    b_ops = 1e3 * flops / F64_FLOPS_PER_S
+    return {"rank": rank, "grams": ng, "sweeps": nsweeps,
+            "max_rel_err_f64": e_kernel, "plain_rel_err_f64": e_plain,
+            "max_abs_err": float((got - plain).abs().max()),
+            "bitwise": True,
+            "ms": time_ms(lambda: pinv.pinv_psd(grams)),
+            "plain_ms": time_ms(lambda: pinv.pinv_psd_plain(
+                functools.reduce(lambda a, b: a * b, grams))),
+            "library_ms": time_ms(lambda: torch.linalg.pinv(
+                v, hermitian=True)),
+            "bound_ms": max(b_bytes, b_ops),
+            "bound_by": "bytes" if b_bytes >= b_ops else "operations"}
+
+
+def pinv_case(api, plan, cfg) -> dict:
+    """Phase 5's ``pinv_psd`` check (see the module docstring): every
+    mode's solve grams after 2 sorted sweeps, at R 32 and widened to R 128;
+    sums over the modes, as the EC kernels' records."""
+    import torch
+    solver = api.compile(plan, cfg)
+    solver.run(2)
+    torch.cuda.synchronize()
+    state = solver.state
+    per_mode, wide = [], []
+    for d in range(plan.nmodes):
+        gs = [state.grams[w][0] for w in range(plan.nmodes) if w != d]
+        per_mode.append(pinv_one(gs, f"mode {d}, R {cfg.rank}"))
+        # R 128 from the same grams: columns repeated, then a small ridge
+        # so that V stays positive definite with distinct eigenvalues
+        cols = torch.arange(128, device=gs[0].device) % gs[0].shape[0]
+        ridge = torch.diag(torch.linspace(1.0, 2.0, 128,
+                                          device=gs[0].device))
+        wide_gs = [(g[cols][:, cols] + ridge * g.diagonal().mean())
+                   .contiguous() for g in gs]
+        wide.append(pinv_one(wide_gs, f"mode {d}, R 128"))
+    del solver
+    torch.cuda.empty_cache()
+    out = {"per_mode": per_mode, "r128": wide}
+    for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        out[k] = sum(x[k] for x in per_mode)
+    out["bound_by"] = ("bytes" if all(x["bound_by"] == "bytes"
+                                      for x in per_mode) else "operations")
+    out["max_abs_err"] = max(x["max_abs_err"] for x in per_mode)
+    out["max_rel_err_f64"] = max(x["max_rel_err_f64"] for x in per_mode)
+    out["bitwise"] = all(x["bitwise"] for x in per_mode + wide)
+    for x in per_mode + wide:
+        print(f"pinv_psd R {x['rank']} ({x['grams']} grams): "
+              f"{x['ms']:.4f} ms, {x['sweeps']} Jacobi sweeps; plain "
+              f"{x['plain_ms']:.4f}, torch.linalg.pinv "
+              f"{x['library_ms']:.4f}, bound {x['bound_ms']:.6f} ms "
+              f"({x['bound_by']}); error against float64 "
+              f"{x['max_rel_err_f64']:.3e} (f32 eigh "
+              f"{x['plain_rel_err_f64']:.3e})", flush=True)
+    return out
+
+
 MD_DEVICES = 4
 MD_SWEEPS = 3       # the default exchange (ring, fp32)
 MD_AB_SWEEPS = 2    # each other exchange
@@ -680,10 +800,11 @@ def multi_device_run(api, plan, cfg, mesh, sweeps: int, label: str, *,
     fits = np.asarray(res.fits)
     name = f"ec_{variant}"
     want = plan.nmodes * mesh.num_devices * sweeps
-    if counts[name] != want:
-        fail(f"{label}: {name} launched {counts[name]} times, expected "
-             f"{plan.nmodes} modes x {mesh.num_devices} devices x {sweeps} "
-             f"sweeps = {want}")
+    for k in (name, "pinv_psd"):
+        if counts[k] != want:
+            fail(f"{label}: {k} launched {counts[k]} times, expected "
+                 f"{plan.nmodes} modes x {mesh.num_devices} devices x "
+                 f"{sweeps} sweeps = {want}")
     if fits.shape != (sweeps,) or not np.isfinite(fits).all():
         fail(f"{label}: fits {fits} are not {sweeps} finite values")
     if (np.diff(fits) < -FIT_TOL).any():
@@ -708,7 +829,8 @@ def multi_device_run(api, plan, cfg, mesh, sweeps: int, label: str, *,
                         "wire_dtype": spec.wire_dtype},
            "fits": fits.tolist(), "sweep_wall_s": wall,
            "steady_sweep_s": float(np.median(wall[1:] or wall)),
-           "launches": counts[name], "sent_bytes_per_device": sent,
+           "launches": counts[name], "pinv_launches": counts["pinv_psd"],
+           "sent_bytes_per_device": sent,
            "modelled_bytes_per_sweep": modelled["sweep_total_bytes"],
            "modelled_per_mode": modelled["per_mode"],
            "stages_per_mode": stages, "exchange_bound_ms": bounds,
@@ -1243,7 +1365,7 @@ def ref_order_phase(api, store, kept, cards: int):
     res, wall, counts, peak, compile_s, solver, snap = timed_run(
         api, plan, cfg, STREAM_SWEEPS, "paper resident, run 1",
         snap_at=REF_REPEAT_SWEEPS)
-    if any(counts.values()):
+    if any(counts[k] for k in KERNELS):
         fail(f"the paper preset launched {counts}: its EC is ref")
     solver.reset()
     t0 = time.perf_counter()
@@ -1278,7 +1400,7 @@ def ref_order_phase(api, store, kept, cards: int):
             runs[mode] = solver.run(PAPER_MD_SWEEPS)
             sync_all()
             run_s = time.perf_counter() - t0
-            if any(_build.LAUNCHES.values()):
+            if any(_build.LAUNCHES[k] for k in KERNELS):
                 fail(f"paper {mode}: launched {dict(_build.LAUNCHES)}")
             if not replicas_equal(solver.state):
                 fail(f"paper {mode}: the replicas hold different bits")
@@ -1321,8 +1443,8 @@ def presets_phase(api, store, plan_main, main_fits, kept, cards: int):
         t0 = time.perf_counter()
         tile, block_p = resolve_geometry(plan_main.nmodes, cfg)
         tune_s = time.perf_counter() - t0
-        for k, v in _build.LAUNCHES.items():
-            tuner_launches[k] += v
+        for k in KERNELS:
+            tuner_launches[k] += _build.LAUNCHES[k]
         tuned = autotune.autotune_ec(plan_main.nmodes, cfg.rank,
                                      variant=name)
         grid_ms = {k: 1e3 * v for k, v in tuned.timings.items()}
@@ -1644,8 +1766,8 @@ def counted_run(solver, sweeps: int, devices: int, label: str,
     if _build.LAUNCHES["ec_sorted"] != want:
         fail(f"{label}: ec_sorted launched {_build.LAUNCHES['ec_sorted']} "
              f"times, expected {want}")
-    for k, n in _build.LAUNCHES.items():
-        launched[k] += n
+    for k in KERNELS:
+        launched[k] += _build.LAUNCHES[k]
     return res
 
 
@@ -2084,8 +2206,8 @@ def profile_case(api, plan, cfg, tmp: str, launched: dict) -> dict:
         if _build.LAUNCHES["ec_sorted"] != want:
             fail(f"phase (e) launched ec_sorted "
                  f"{_build.LAUNCHES['ec_sorted']} times in {swept} sweeps")
-        for k, n in _build.LAUNCHES.items():
-            launched[k] += n
+        for k in KERNELS:
+            launched[k] += _build.LAUNCHES[k]
     out["sweep_ms"] = walls
     print(f"sweeps in turns on one solver (host clock to a synchronise): "
           f"untraced {[round(w, 3) for w in walls['plain']]} ms, traced "
@@ -2409,15 +2531,8 @@ def analysis_case(api, plan, cfg, store, kept, svc, cards: int) -> dict:
             all(torch.equal(a, b) for a, b in zip(solver.state.lam, lam))
     if not same:
         fail("the audit changed the solver's state")
-    h002 = [f for f in found if f.rule == "AH-H002"]
-    other = [f for f in found if f.rule != "AH-H002"]
-    if other:
-        fail(f"the audit of the main path's solver: {other}")
-    for f in h002:
-        print(f"  audit: {f}")
-    if not any("_pinv_psd" in f.message for f in h002):
-        print("  audit: no AH-H002 finding names _pinv_psd (eigh's sync "
-              "was expected)")
+    if found:
+        fail(f"the audit of the main path's solver: {found}")
     kcfg, kplan = kept
     r = kplan.modes[0].r
     mesh = mttkrp.cp_mesh(MD_DEVICES, r, devices=[
@@ -2441,12 +2556,11 @@ def analysis_case(api, plan, cfg, store, kept, svc, cards: int) -> dict:
           f"analyze='strict') in {out['plan_strict_s']:.2f} s: no AP error;"
           f" AH-H001 clean for sorted and fused, blocked's pre-gather "
           f"found; the solver's audit in {out['audit_s']:.2f} s, state "
-          f"unchanged, {len(h002)} AH-H002 finding(s) above; AH-H005 clean"
+          f"unchanged, no finding; AH-H005 clean"
           f" on the r={r} x{MD_DEVICES} bf16-wire run (audit "
           f"{out['audit_bf16_s']:.2f} s, mode 0; "
           f"{len([f for f in mfound if f.rule == 'AH-H002'])} AH-H002); "
           f"AH-H006 clean; concurrency lint clean", flush=True)
-    out["h002"] = [str(f) for f in h002]
     out["h002_bf16"] = [str(f) for f in mfound if f.rule == "AH-H002"]
     return out
 
@@ -3656,12 +3770,14 @@ def run_phases(args, api, kind: str, smi: str, tmp: str) -> None:
     torch.cuda.reset_peak_memory_stats()
     fits, counts, wall = run_solver(api, plan, cfg, SWEEPS, "sorted")
     peak = torch.cuda.max_memory_allocated()
-    if counts["ec_sorted"] != plan.nmodes * SWEEPS:
-        fail(f"ec_sorted launched {counts['ec_sorted']} times in "
-             f"{SWEEPS} sweeps, expected {plan.nmodes * SWEEPS}")
+    for k in ("ec_sorted", "pinv_psd"):
+        if counts[k] != plan.nmodes * SWEEPS:
+            fail(f"{k} launched {counts[k]} times in {SWEEPS} sweeps, "
+                 f"expected {plan.nmodes * SWEEPS}")
     if (np.diff(fits) < -FIT_TOL).any():
         fail(f"sorted fits decrease: {fits}")
-    launches = {"ec_sorted": counts["ec_sorted"]}
+    launches = {"ec_sorted": counts["ec_sorted"],
+                "pinv_psd": counts["pinv_psd"]}
     walls = {"sorted": wall}
     vfits_of = {}
     for variant in ("fused", "blocked"):
@@ -3669,9 +3785,10 @@ def run_phases(args, api, kind: str, smi: str, tmp: str) -> None:
         vfits, vcounts, vwall = run_solver(api, plan, vcfg, AB_SWEEPS,
                                            variant)
         name = f"ec_{variant}"
-        if vcounts[name] != plan.nmodes * AB_SWEEPS:
-            fail(f"{name} launched {vcounts[name]} times, expected "
-                 f"{plan.nmodes * AB_SWEEPS}")
+        for k in (name, "pinv_psd"):
+            if vcounts[k] != plan.nmodes * AB_SWEEPS:
+                fail(f"{variant}: {k} launched {vcounts[k]} times, "
+                     f"expected {plan.nmodes * AB_SWEEPS}")
         diff = np.abs(vfits - fits[:AB_SWEEPS]).max()
         if diff > FIT_TOL:
             fail(f"{variant} fits {vfits} differ from sorted's "
@@ -3682,6 +3799,7 @@ def run_phases(args, api, kind: str, smi: str, tmp: str) -> None:
     if not np.array_equal(vfits_of["blocked"], vfits_of["fused"]):
         fail(f"blocked fits {vfits_of['blocked']} are not fused's "
              f"{vfits_of['fused']}")
+    pinv_rec = pinv_case(api, plan, cfg)
 
     phase("multi-device path")
     md, kept = multi_device(api, store, cfg, fits, args.cards)
@@ -3689,6 +3807,8 @@ def run_phases(args, api, kind: str, smi: str, tmp: str) -> None:
                              for run in p["runs"].values()
                              if f"ec_{run['variant']}" == name)
                    for name in KERNELS}
+    md_launches["pinv_psd"] = sum(run["pinv_launches"] for p in md["plans"]
+                                  for run in p["runs"].values())
 
     phase("rebalance")
     rb = rebalance_phase(api, cfg, kept, fits, args.cards)
@@ -3774,6 +3894,24 @@ def run_phases(args, api, kind: str, smi: str, tmp: str) -> None:
             "max_rel_diff_slot_order": max(x["rel_diff_slot_order"]
                                            for x in r),
         })
+    # the solve's pseudo-inverse: launches are counted on the main and
+    # multi-device paths (once per mode, replica and sweep there); the
+    # other phases' counts read the EC's kernels only
+    kernels.append({
+        "name": "pinv_psd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/pinv_psd.cu",
+        "replaces": None, "launches": launches["pinv_psd"],
+        "multi_device_launches": md_launches["pinv_psd"],
+        **{k: None for k in ("rebalance_launches",
+                             "rebalance_probe_launches", "tuner_launches",
+                             "preset_launches", "stream_launches",
+                             "operations_launches", "serve_launches",
+                             "moe_a2a_launches")},
+        **{k: pinv_rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "bitwise")},
+        "max_rel_err_f64": pinv_rec["max_rel_err_f64"],
+        "r128": pinv_rec["r128"]})
     detail = {"device": kind, "smi": smi, "scale": args.scale,
               "nnz": tensor.nnz, "shape": list(tensor.shape),
               "rank": cfg.rank, "generate_s": t_gen, "plan_s": t_plan,
@@ -3785,7 +3923,7 @@ def run_phases(args, api, kind: str, smi: str, tmp: str) -> None:
                   resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
               "sorted_fits": fits.tolist(),
               "ab_fits": {k: v.tolist() for k, v in vfits_of.items()},
-              "sweep_wall_s": walls,
+              "sweep_wall_s": walls, "pinv_psd": pinv_rec,
               "per_mode": recs, "multi_device": md, "rebalance": rb,
               "store": st, "ref_order": ref_rec, "presets": presets,
               "streaming": stream, "operations": ops, "serve": serve,

@@ -87,7 +87,7 @@ from repro_torch.core import als as als_mod
 from repro_torch.core import mttkrp as dmttkrp
 from repro_torch.core.decompose import CPResult
 from repro_torch.core.partition import CPPlan, validate_plan
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, pinv
 from repro_torch.obs import clock
 from repro_torch.obs import export as obs_export
 from repro_torch.obs import trace as obs_trace
@@ -205,6 +205,11 @@ class CPSolver:
                 "deliberately never materializes. Plan from the in-memory "
                 "tensor (store.to_coo()) to use the dynamic scheduler, or "
                 "run with schedule.rebalance='off'.")
+        # on a card the solve's pseudo-inverse is the pinv_psd kernel, with
+        # no other version there: refuse what it does not take before
+        # placing anything
+        if any(torch.device(d).type == "cuda" for d in mesh.devices):
+            pinv.check_shape(config.rank, plan.nmodes - 1)
         self.plan = plan
         self.config = config
         self.mesh = mesh

@@ -23,10 +23,11 @@ the same bits and receives the same bits from the exchange (every block,
 the own one included, takes the same wire round trip).
 
 Nothing in a sweep reads a result on the host: the fit it appends is a 0-d
-device tensor, read only when the caller asks. (On CUDA,
-``torch.linalg.eigh`` synchronises once per replica and mode for its own
-error check, so the host waits for each mode's MTTKRP before it enqueues
-that mode's solve.)
+device tensor, read only when the caller asks. On a card the pseudo-inverse
+``V_d⁺`` is one kernel (``kernels/pinv.py``) on the card's stream that
+synchronises with nothing, so the host enqueues a whole sweep without
+waiting for the card; on the CPU it comes from ``torch.linalg.eigh``
+(which on a card would wait for each mode's MTTKRP).
 
 Every stage runs in a span of :mod:`repro_torch.obs.trace`: per mode
 ``mode_update`` ⊃ {``ec``, ``exchange``, ``solve`` ⊃ ``eigh``} (one
@@ -54,8 +55,10 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import mttkrp as dmttkrp
 from repro_torch.core.partition import CPPlan
+from repro_torch.kernels import pinv
 from repro_torch.obs import trace as obs_trace
 
 __all__ = ["ALSState", "init_factors", "replicate", "make_mode_update",
@@ -100,22 +103,28 @@ def replicate(x: np.ndarray, devices) -> list[torch.Tensor]:
     return [torch.tensor(x, device=d) for d in devices]
 
 
-def _pinv_psd(v: torch.Tensor, rcond: float = 1e-8) -> torch.Tensor:
-    """Pseudo-inverse of a symmetric PSD R×R matrix via eigh (stable, tiny)."""
+def _pinv_psd(grams: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``V⁺`` of the symmetric PSD ``V = grams[0] * grams[1] * ...``
+    (elementwise, left to right; R×R), with eigenvalues at most 1e-8 ·
+    max|w| cut, on the current stream: on a card by the kernel
+    (:func:`repro_torch.kernels.pinv.pinv_psd`), elsewhere by ``eigh``
+    (``pinv_psd_plain``); the registry counts each call,
+    ``als.pinv.kernel`` or ``als.pinv.plain``."""
+    g0 = grams[0]
     with obs_trace.span("eigh", annotate=True):
-        w, u = torch.linalg.eigh(v)
-    w_inv = torch.where(w > rcond * w.abs().max(), 1.0 / w,
-                        torch.zeros_like(w))
-    return (u * w_inv[None, :]) @ u.T
+        if pinv.takes_kernel(g0.device, g0.shape[0], len(grams)):
+            obs.get_registry().inc("als.pinv.kernel")
+            return pinv.pinv_psd(grams)
+        obs.get_registry().inc("als.pinv.plain")
+        return pinv.pinv_psd_plain(functools.reduce(lambda a, b: a * b,
+                                                    grams))
 
 
 def _solve(m: torch.Tensor, f_old: torch.Tensor, grams, mode: int):
     """One replica's ``F_d = M_d V_d⁺`` (written into ``f_old``), its
     column norms ``lam`` (F_d is divided by them) and its gram."""
-    v = functools.reduce(
-        lambda a, b: a * b,
-        [g for w, g in enumerate(grams) if w != mode])    # (R, R)
-    f_new = torch.matmul(m, _pinv_psd(v), out=f_old)
+    vplus = _pinv_psd([g for w, g in enumerate(grams) if w != mode])
+    f_new = torch.matmul(m, vplus, out=f_old)
     lam = torch.linalg.vector_norm(f_new, dim=0)
     lam = torch.where(lam > 0, lam, torch.ones_like(lam))
     f_new.div_(lam[None, :])
@@ -321,7 +330,7 @@ def als_sweep(plan: CPPlan, mesh, dev_arrays: Sequence, state: ALSState,
     pass ``updates`` (from :func:`make_sweep_updates`).
 
     The fit is appended as a 0-d device tensor and forces a host sync only
-    when read (see the module docstring for eigh's own sync). Each mode's
+    when read (see the module docstring for the solve's). Each mode's
     updated factor overwrites the old one in place (see
     :func:`make_mode_update`)."""
     n = plan.nmodes

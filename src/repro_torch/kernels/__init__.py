@@ -2,7 +2,8 @@
 CUDA kernels for Hopper that replace the reference's three TPU kernels —
 ``ec_sorted`` (mttkrp_sorted), ``ec_fused`` (mttkrp_fused) and
 ``ec_blocked`` (mttkrp_blocked). Variant dispatch lives in ops; building
-and binding the CUDA sources in _build."""
+and binding the CUDA sources in _build. ``pinv`` holds the ALS solve's
+pseudo-inverse kernel, which replaces ``torch.linalg.eigh`` on the card."""
 from repro_torch.kernels.mttkrp_blocked import ec_blocked
 from repro_torch.kernels.mttkrp_fused import ec_fused
 from repro_torch.kernels.mttkrp_sorted import ec_sorted

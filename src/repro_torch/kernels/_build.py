@@ -1,4 +1,5 @@
-"""Build, bind and launch plumbing shared by the port's CUDA EC kernels.
+"""Build, bind and launch plumbing shared by the port's CUDA kernels: the
+three EC kernels and the ALS solve's pseudo-inverse (``pinv_psd``).
 
 Each source under ``csrc/`` is compiled at first use by ``nvcc`` for Hopper
 (``sm_90a``) into a shared library with a plain C interface, loaded with
@@ -52,7 +53,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 # One shared library per source.
 SOURCES = {"ec_sorted": "ec_sorted.cu", "ec_fused": "ec_fused.cu",
-           "ec_blocked": "ec_blocked.cu"}
+           "ec_blocked": "ec_blocked.cu", "pinv_psd": "pinv_psd.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Shared memory one CUDA block may use on Hopper (227 KiB).
@@ -76,7 +77,7 @@ ITEM_WARPS = 4
 MAX_ITEM_RANK = 128
 STEP_FLOATS = 128
 
-LAUNCHES = {"ec_sorted": 0, "ec_fused": 0, "ec_blocked": 0}
+LAUNCHES = {"ec_sorted": 0, "ec_fused": 0, "ec_blocked": 0, "pinv_psd": 0}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -95,7 +96,7 @@ def _nvcc() -> str:
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
-                       "the EC kernels are compiled at first use")
+                       "the CUDA kernels are compiled at first use")
 
 
 def _lib_path(name: str) -> Path:

@@ -428,7 +428,7 @@ def test_measure_is_bitwise_off_on_four_cpu_devices(preset_overrides):
     assert len(timing["probe_s"][0]) == 4 and timing["apply_s"] == 0.0
     # on CPU tensors the wrappers run their plain versions: no launch
     assert timing["probe_launches"] == {"ec_sorted": 0, "ec_fused": 0,
-                                        "ec_blocked": 0}
+                                        "ec_blocked": 0, "pinv_psd": 0}
 
 
 def test_on_migrates_replaces_and_keeps_the_fit():
